@@ -11,25 +11,45 @@ It imports torch, numpy, scipy and the port only (never JAX, never
 
 1. card   -- the ``nvidia-smi`` name and power limit, torch, CUDA and nvcc
    versions;
-2. build  -- ``nvcc`` builds ``voltools_tpu_torch/csrc/affine_resample.cu``
-   (timed) and the library is loaded;
-3. parity -- the kernel against its plain torch version on the card: order
-   {1, 3} x mode {constant, border} x cval {0, 1.5}, random 'sxyz'
-   rotations about size/2 plus a translate, a scale and a shear, on 250^3,
-   (40, 48, 56) and shapes with an extent of 1; a batch of 16 and a write
-   into a preallocated tensor.  atol 5e-5 off knife edges;
-4. main   -- the main path at 250^3 float32, through the public API:
+2. build  -- ``nvcc`` builds both kernels, ``csrc/affine_resample.cu`` (the
+   walk port, A) and ``csrc/affine_slab.cu`` (the slab port, B), in
+   parallel, each timed, with registers and spills;
+3. parity -- A against its plain torch version on the card: order {1, 3} x
+   mode {constant, border} x cval {0, 1.5}, random 'sxyz' rotations about
+   size/2 plus a translate, a scale and a shear, on 250^3, (40, 48, 56) and
+   shapes with an extent of 1; a batch of 16 and a write into a
+   preallocated tensor.  atol 5e-5 off knife edges;
+4. parity_slab -- B against its plain version (atol 5e-5 off knife edges)
+   and against A (``torch.equal``: the two share their per-voxel
+   arithmetic), order x mode x cval as above, on the matrices of
+   ``tests/test_pallas.py`` at (40, 48, 56), the 41-tilt series about each
+   axis at 250^3, the extent-1 shapes, a batch and an into-buffer write;
+   B's overflow counter stays 0;
+5. main   -- the main path at 250^3 float32, through the public API:
    ``StaticVolume`` 'linear' and 'filt_bspline' on 'cuda', ``.affine`` over
    16 random rotations and ``.affine_batch`` of the same 16, and the
-   one-shot ``affine(..., 'filt_bspline', device='cuda')``.  The launch
-   counter is set to 0 just before and read just after; results are held
-   against the plain version and the scipy.ndimage oracles;
-5. times  -- CUDA-event times after warm-up: kernel, batch, prefilter,
-   one-shot and plain version, beside the kernel's bound (the larger of
-   its bytes over the memory rate and its least arithmetic, for this run's
-   matrices, over the fp32 rate) and
-   ``torch.nn.functional.grid_sample`` (timed only; the port never calls
-   it).
+   one-shot ``affine(..., 'filt_bspline', device='cuda')``.  Both launch
+   counters are set to 0 just before and read just after, and each must
+   equal what the planner (``choose_plan``) gives for the same matrices;
+   results are held against the plain version and scipy.ndimage;
+6. tilt   -- the tilt-series path at 250^3 through the public API:
+   ``TiltSeriesProjector`` 'linear' and 'filt_bspline', 41 tilts from -60
+   to +60 degrees in 3 degree steps at position 1 of the 'rzxz' triple,
+   then ``wbp_reconstruct`` and ``sirt_reconstruct`` (30 iterations) of a
+   linear series at position 0, the geometry of
+   ``examples/reconstruction.py``, with the counters set to 0 before and
+   read after (every launch is B's).  Projections are held against the
+   plain version (rotate, then sum) and one tilt against
+   ``scipy.ndimage.affine_transform(...).sum(axis=0)``; WBP and SIRT
+   against the same functions with the plain forward;
+7. times  -- CUDA-event times after warm-up of B and A on the same
+   matrices (the tilt series and the 16 random rotations, single and
+   batched, linear and cubic), ``StaticVolume.affine`` per rotation, the
+   prefilters, the one-shot call, the projector, WBP and SIRT, and the
+   plain versions, beside each kernel's bound (the larger of its bytes over the
+   memory rate and its least arithmetic, for this run's matrices, over
+   the fp32 rate) and ``torch.nn.functional.grid_sample`` (timed only; the
+   port never calls it).
 
 The line before the last is the ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -40,11 +60,32 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 SIZE = 250                 # the reference benchmark's volume, 250^3 float32
 N_ROT = 16                 # rotations on the main path
+TILTS = (-60.0, 61.0, 3.0)  # the examples' tilt series: 41 tilts
+TILT_AXIS = 1
+# the reconstruction's series: with 'rzxz' and projection axis 0, a tilt at
+# position 1 turns the volume about the beam (array axis 0), so its
+# projections are in-plane rotations of one image and hold no depth; at
+# position 0 it turns about array axis 2, across the beam, as
+# examples/reconstruction.py tilts
+RECON_TILT_AXIS = 0
+SIRT_ITERATIONS = 30       # as examples/reconstruction.py
 ATOL = 5e-5                # kernel vs plain version, off knife edges
 SCIPY_ATOL = 1e-4          # main path vs scipy.ndimage, off knife edges
+# a projection sums SIZE voxels: against scipy each may be off by
+# SCIPY_ATOL; against the plain version on the card the voxels agree and
+# only the order of the sum may differ: n * eps * sum|x| for 250 values
+# below 1 is about 2e-3
+PROJ_SCIPY_ATOL = SIZE * SCIPY_ATOL
+PROJ_ATOL = 2e-3
+# WBP and SIRT with the kernels' forward against the plain forward, as a
+# share of the largest |value|: the projections may differ in their last
+# bits (sums in another order), and SIRT carries that through 30 rounds
+# of sums over 41 tilts and 250 voxels
+RECON_RTOL = 1e-4
 KNIFE_TOL = 1e-4           # |coordinate - round(coordinate)| masked below
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 FP32_FLOPS = 67e12         # H100 SXM fp32 rate outside the tensor cores
@@ -55,6 +96,9 @@ FP32_FLOPS = 67e12         # H100 SXM fp32 rate outside the tensor cores
 # voxel outside the source needs only its coordinates.
 FLOPS_INSIDE = {1: 18 + 3 + 3 * 1 + 2 * 14, 3: 18 + 3 + 3 * 14 + 2 * 84}
 FLOPS_OUTSIDE = 18
+# the matrices of tests/test_pallas.py, on its (40, 48, 56) volume
+PALLAS_SHAPE = (40, 48, 56)
+PALLAS_CENTER = (19.5, 23.5, 27.5)
 
 CARD = {}
 
@@ -112,6 +156,35 @@ def matrix_set(np, transform_matrix, shape, seed):
     return np.stack(ms).astype(np.float32)
 
 
+def pallas_cases(np, transform_matrix, translation_matrix, center):
+    """The CASES of tests/test_pallas.py about ``center``."""
+    return np.stack([
+        np.eye(4),
+        translation_matrix((1.5, -2.25, 0.75)),
+        transform_matrix(scale=(1.3, 0.8, 1.1), center=center),
+        transform_matrix(rotation=(10, 5, -3), rotation_order="rzxz",
+                         center=center),
+        transform_matrix(rotation=(0, 60, 0), rotation_order="sxyz",
+                         center=center),
+        transform_matrix(rotation=(170, 0, 0), rotation_order="rzxz",
+                         center=center),
+        transform_matrix(shear=(0.1, -0.05, 0.2), center=center),
+    ]).astype(np.float32)
+
+
+def tilt_series(np, transform_matrix, shape, axis):
+    """The 41-tilt series about ``axis`` ('rzxz', center (n-1)/2), as
+    ``TiltSeriesProjector.tilt_matrices`` builds it."""
+    center = np.divide(np.subtract(shape, 1), 2, dtype=np.float32)
+    ms = []
+    for a in np.arange(*TILTS):
+        triple = [0.0, 0.0, 0.0]
+        triple[axis] = float(a)
+        ms.append(transform_matrix(rotation=triple, rotation_order="rzxz",
+                                   center=center))
+    return np.stack(ms).astype(np.float32)
+
+
 def time_ms(torch, fn, reps, warmup=2):
     """Mean device time of ``fn`` over ``reps`` back-to-back runs."""
     for _ in range(warmup):
@@ -129,7 +202,7 @@ def time_ms(torch, fn, reps, warmup=2):
 
 def inside_voxels(torch, vt, shape, mats):
     """Output voxels per matrix whose source point lies inside the volume
-    ('constant' mode), from the coordinates the kernel computes."""
+    ('constant' mode), from the coordinates the kernels compute."""
     counts = []
     for m in mats:
         s = vt.ops.affine_coords(shape, m)
@@ -175,13 +248,25 @@ def main():
     import voltools_tpu_torch as vt
     from voltools_tpu_torch.kernels import _build
     from voltools_tpu_torch.kernels import affine_resample as K
+    from voltools_tpu_torch.kernels import affine_slab as S
+    from voltools_tpu_torch.kernels.planner import choose_plan
+    from voltools_tpu_torch.models import (TiltSeriesProjector,
+                                           sirt_reconstruct,
+                                           wbp_reconstruct)
+    from voltools_tpu_torch.models.projections import plain_project_stack
     from voltools_tpu_torch.ops.prefilter import bspline_prefilter
     from voltools_tpu_torch.ops.sampling import affine_sample
-    from voltools_tpu_torch.utils import transform_matrix
+    from voltools_tpu_torch.utils import (transform_matrix,
+                                          translation_matrix)
 
-    kernel = K.affine_resample
+    walk = K.affine_resample
+    slab = S.affine_slab
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    interp_of = {1: "linear", 3: "bspline"}
+
+    def plan_of(ms, shape, order, mode="constant"):
+        return choose_plan(ms, shape, interp_of[order], mode)
 
     # ---------------------------------------------------------- 1. card
     smi = card_line()
@@ -195,76 +280,167 @@ def main():
          count=torch.cuda.device_count())
 
     # --------------------------------------------------------- 2. build
-    cached = _build.library_path(K.NAME).is_file()
+    # one nvcc per source, all started together
+    cached = {m.NAME: _build.library_path(m.NAME).is_file() for m in (K, S)}
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(_build.build, [K.NAME, S.NAME]))
     K._library()
-    seconds = time.perf_counter() - t0
-    log = _build.BUILD_LOG.get(K.NAME, (None, ""))[1]
-    emit("build", source=K.SOURCE, seconds=seconds, built_now=not cached,
-         flags=" ".join(_build.NVCC_FLAGS),
-         ptxas=[ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln])
+    S._library()
+    wall = time.perf_counter() - t0
+    for m in (K, S):
+        seconds, log = _build.BUILD_LOG.get(m.NAME, (None, ""))
+        emit("build", source=m.SOURCE, seconds=seconds,
+             built_now=not cached[m.NAME], wall_seconds_both=wall,
+             flags=" ".join(_build.NVCC_FLAGS),
+             ptxas=[ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln])
 
-    # ------------------------------------------ 3. kernel vs plain version
+    # ------------------------------------------ 3. A vs its plain version
     rng = np.random.default_rng(1)
     worst = {1: 0.0, 3: 0.0}
     worst_all = 0.0
-    shapes = [(SIZE,) * 3, (40, 48, 56), (1, 64, 80), (37, 1, 29)]
+    shapes = [(SIZE,) * 3, PALLAS_SHAPE, (1, 64, 80), (37, 1, 29)]
     for shape in shapes:
         vol = torch.from_numpy(rng.random(shape).astype(np.float32)).to(dev)
         ms = matrix_set(np, transform_matrix, shape, seed=shape[0])
         ms_dev = torch.from_numpy(ms).to(dev)
         for order in (1, 3):
-            interp = "linear" if order == 1 else "bspline"
             for mode in ("constant", "border"):
                 for cval in (0.0, 1.5):
                     errs = []
                     for i in range(len(ms)):
-                        got = kernel(vol, ms_dev[i], order, mode, cval)
-                        want = affine_sample(vol, ms_dev[i], interp, mode,
-                                             cval, prefiltered=True)
+                        got = walk(vol, ms_dev[i], order, mode, cval)
+                        want = affine_sample(vol, ms_dev[i], interp_of[order],
+                                             mode, cval, prefiltered=True)
                         off, every = errors(torch, got, want, ms[i])
                         errs.append(off)
                         worst[order] = max(worst[order], off)
                         worst_all = max(worst_all, every)
                         assert off <= ATOL, (shape, order, mode, cval, i, off)
                     torch.cuda.synchronize()
-                    emit("parity", shape=list(shape), order=order, mode=mode,
-                         cval=cval, max_abs_err=errs, atol=ATOL)
+                    emit("parity", kernel=K.NAME, shape=list(shape),
+                         order=order, mode=mode, cval=cval,
+                         max_abs_err=errs, atol=ATOL)
 
     vol = torch.from_numpy(rng.random((SIZE,) * 3).astype(np.float32)).to(dev)
     ms = np.stack([matrix_set(np, transform_matrix, (SIZE,) * 3, seed=s)[:2]
                    for s in range(8)]).reshape(-1, 4, 4)
     ms_dev = torch.from_numpy(ms).to(dev)
-    for order, interp in ((1, "linear"), (3, "bspline")):
-        batch = kernel(vol, ms_dev, order)
+    for order in (1, 3):
+        batch = walk(vol, ms_dev, order)
         errs = []
         for i in range(len(ms)):
-            want = affine_sample(vol, ms_dev[i], interp, prefiltered=True)
+            want = affine_sample(vol, ms_dev[i], interp_of[order],
+                                 prefiltered=True)
             off, _ = errors(torch, batch[i], want, ms[i])
             errs.append(off)
             assert off <= ATOL, ("batch", order, i, off)
-            assert torch.equal(batch[i], kernel(vol, ms_dev[i], order)), \
+            assert torch.equal(batch[i], walk(vol, ms_dev[i], order)), \
                 "a batched launch differs from a single one"
         buf = torch.full((SIZE,) * 3, float("nan"), device=dev)
-        assert kernel(vol, ms_dev[3], order, out=buf) is buf
+        assert walk(vol, ms_dev[3], order, out=buf) is buf
         assert torch.equal(buf, batch[3]), "write into a preallocated tensor"
         torch.cuda.synchronize()
-        emit("parity_batch", order=order, n=len(ms), max_abs_err=max(errs),
-             into_buffer="ok", atol=ATOL)
+        emit("parity_batch", kernel=K.NAME, order=order, n=len(ms),
+             max_abs_err=max(errs), into_buffer="ok", atol=ATOL)
     del vol, batch, buf
 
-    # ---------------------------------------------------- 4. main path
+    # ------------------------------ 4. B vs its plain version and vs A
+    slab_worst = {1: 0.0, 3: 0.0}
+    slab_worst_all = 0.0
+    big = (SIZE,) * 3
+    sets = [("pallas_cases", PALLAS_SHAPE,
+             pallas_cases(np, transform_matrix, translation_matrix,
+                          PALLAS_CENTER))]
+    sets += [(f"tilt_axis_{ax}", big,
+              tilt_series(np, transform_matrix, big, ax)) for ax in range(3)]
+    for shape in ((1, 64, 80), (37, 1, 29)):
+        center = tuple((s - 1) / 2 for s in shape)
+        sets.append((f"extent_1_{shape}", shape,
+                     pallas_cases(np, transform_matrix, translation_matrix,
+                                  center)))
+    for name, shape, ms in sets:
+        vol = torch.from_numpy(rng.random(shape).astype(np.float32)).to(dev)
+        ms_dev = torch.from_numpy(ms).to(dev)
+        for order in (1, 3):
+            for mode in ("constant", "border"):
+                # one launch for the set where its envelope fits, else one
+                # launch per matrix
+                envelope = plan_of(ms, shape, order, mode)
+                plans = [envelope] if envelope is not None else [
+                    plan_of(m, shape, order, mode) for m in ms]
+                assert None not in plans, (name, order, mode, "no slab plan")
+                blocks = min(S.blocks_per_sm(p, dev) for p in plans)
+                for cval in (0.0, 1.5):
+                    if envelope is not None:
+                        got = slab(vol, ms_dev, order, mode, cval,
+                                   plan=envelope)
+                    else:
+                        got = torch.stack([
+                            slab(vol, ms_dev[i], order, mode, cval, plan=p)
+                            for i, p in enumerate(plans)])
+                    same = torch.equal(got, walk(vol, ms_dev, order, mode,
+                                                 cval))
+                    assert same, (name, order, mode, cval, "B != A")
+                    errs = []
+                    for i in range(len(ms)):
+                        want = affine_sample(vol, ms_dev[i], interp_of[order],
+                                             mode, cval, prefiltered=True)
+                        off, every = errors(torch, got[i], want, ms[i])
+                        errs.append(off)
+                        slab_worst[order] = max(slab_worst[order], off)
+                        slab_worst_all = max(slab_worst_all, every)
+                        assert off <= ATOL, (name, order, mode, cval, i, off)
+                    torch.cuda.synchronize()
+                    emit("parity_slab", set=name, shape=list(shape),
+                         n=len(ms), order=order, mode=mode, cval=cval,
+                         launches=len(plans),
+                         extents=[list(p.extents) for p in plans],
+                         blocks_per_sm=blocks,
+                         equal_to_walk=same, max_abs_err=max(errs),
+                         atol=ATOL)
+        del vol, got
+    # a single matrix, and a write into a preallocated tensor
+    vol = torch.from_numpy(rng.random(big).astype(np.float32)).to(dev)
+    ms = tilt_series(np, transform_matrix, big, TILT_AXIS)
+    ms_dev = torch.from_numpy(ms).to(dev)
+    for order in (1, 3):
+        plan = plan_of(ms[5], big, order)
+        buf = torch.full(big, float("nan"), device=dev)
+        assert slab(vol, ms_dev[5], order, out=buf, plan=plan) is buf
+        assert torch.equal(buf, walk(vol, ms_dev[5], order)), "into buffer"
+        assert torch.equal(buf, slab(vol, ms_dev, order,
+                                     plan=plan_of(ms, big, order))[5]), \
+            "a batched launch differs from a single one"
+    overflows = S.overflows(dev)
+    assert overflows == 0, ("slab overflows", overflows)
+    emit("parity_slab_single", into_buffer="ok", batch_equals_single="ok",
+         overflows=overflows)
+    del vol, buf
+
+    # ---------------------------------------------------- 5. main path
     rng = np.random.default_rng(0)   # bench.py's volume and rotation stream
-    vol_np = rng.random((SIZE,) * 3, dtype=np.float64).astype(np.float32)
+    vol_np = rng.random(big, dtype=np.float64).astype(np.float32)
     center = (SIZE / 2,) * 3
     rots = np.stack([transform_matrix(rotation=tuple(rng.uniform(-180, 180,
                                                                    3)),
                                       rotation_order="sxyz", center=center)
                      for _ in range(N_ROT)]).astype(np.float32)
+    # what the planner gives for each launch of the main path: 16 single
+    # calls and one batch (16 volumes of output fit one chunk) per volume,
+    # the host-return call, the write into a preallocated tensor and the
+    # one-shot call
+    calls = ([rots[i] for i in range(N_ROT)] + [rots]) * 2 + [
+        rots[0], rots[1], rots[0]]
+    orders = [1] * (N_ROT + 1) + [3] * (N_ROT + 1) + [1, 3, 3]
+    expected = {S.NAME: 0, K.NAME: 0}
+    for m, order in zip(calls, orders):
+        expected[S.NAME if plan_of(m, big, order) is not None
+                 else K.NAME] += 1
 
     torch.cuda.synchronize()
-    kernel.launches = 0
+    walk.launches = slab.launches = 0
     t0 = time.perf_counter()
     sv_lin = vt.StaticVolume(vol_np, "linear", device="cuda")
     lin = [sv_lin.affine(m, output="device") for m in rots]
@@ -273,28 +449,25 @@ def main():
     cub = [sv_cub.affine(m, output="device") for m in rots]
     cub_batch = sv_cub.affine_batch(rots, output="device")
     host = sv_lin.affine(rots[0])
-    into = torch.empty((SIZE,) * 3, device=dev)
+    into = torch.empty(big, device=dev)
     into_ret = sv_cub.affine(rots[1], output=into)
     oneshot = vt.affine(vol_np, rots[0], interpolation="filt_bspline",
                         device="cuda", output="device")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = kernel.launches
-    # 16 + 1 batch launch per volume, the host-return call, the write into
-    # a preallocated tensor and the one-shot call
-    expected = 2 * (N_ROT + 1) + 3
-    assert launches == expected, (launches, expected)
+    main_launches = {S.NAME: slab.launches, K.NAME: walk.launches}
+    assert main_launches == expected, (main_launches, expected)
+    assert all(n > 0 for n in main_launches.values()), main_launches
     assert vt.last_dispatch()["impl"] == "cuda"
 
     main_err = {1: 0.0, 3: 0.0}
     for order, sv, outs, batch in ((1, sv_lin, lin, lin_batch),
                                    (3, sv_cub, cub, cub_batch)):
-        interp = "linear" if order == 1 else "bspline"
-        assert batch.shape == (N_ROT,) + (SIZE,) * 3
+        assert batch.shape == (N_ROT,) + big
         for i, m in enumerate(rots):
-            assert outs[i].shape == (SIZE,) * 3
-            want = affine_sample(sv.data, torch.from_numpy(m).to(dev), interp,
-                                 prefiltered=True)
+            assert outs[i].shape == big
+            want = affine_sample(sv.data, torch.from_numpy(m).to(dev),
+                                 interp_of[order], prefiltered=True)
             off, _ = errors(torch, outs[i], want, m)
             main_err[order] = max(main_err[order], off)
             assert off <= ATOL, ("main", order, i, off)
@@ -316,8 +489,8 @@ def main():
                             torch.from_numpy(want), rots[0])
         oracle[order] = (off, every)
         assert off <= SCIPY_ATOL, ("scipy oracle", order, off)
-    emit("main", shape=[SIZE] * 3, rotations=N_ROT, seconds=seconds,
-         launches=launches, expected_launches=expected,
+    emit("main", shape=list(big), rotations=N_ROT, seconds=seconds,
+         launches=main_launches, expected_launches=expected,
          max_abs_err_vs_plain={"linear": main_err[1], "cubic": main_err[3],
                                "one_shot": off_one},
          scipy_oracle={"linear": oracle[1][0], "cubic": oracle[3][0],
@@ -326,26 +499,194 @@ def main():
                        "atol": SCIPY_ATOL})
     del lin, cub, lin_batch, cub_batch, oneshot
 
-    # --------------------------------------------------------- 5. times
+    # ------------------------------------------------- 6. tilt path
+    angles = np.arange(*TILTS)
+    tms = tilt_series(np, transform_matrix, big, TILT_AXIS)
+    rms = tilt_series(np, transform_matrix, big, RECON_TILT_AXIS)
+    chunk = vt.StaticVolume._BATCH_BYTES_BUDGET // (4 * SIZE ** 3)
+
+    def chunks_of(ms):
+        return [ms[p:p + chunk] for p in range(0, len(ms), chunk)]
+
+    expected_tilt = {S.NAME: 0, K.NAME: 0}
+    # the projector's series in both orders, the reconstruction's series
+    # once, then SIRT: the row sums and one forward sweep per iteration
+    for ms, order, times in ((tms, 1, 1), (tms, 3, 1),
+                             (rms, 1, 2 + SIRT_ITERATIONS)):
+        for c in chunks_of(ms):
+            expected_tilt[S.NAME if plan_of(c, big, order) is not None
+                          else K.NAME] += times
+
+    torch.cuda.synchronize()
+    walk.launches = slab.launches = 0
+    t0 = time.perf_counter()
+    proj = {}
+    projs = {}
+    for interp in ("linear", "filt_bspline"):
+        proj[interp] = TiltSeriesProjector(vol_np, interp, device="cuda")
+        projs[interp] = proj[interp].project(angles, tilt_axis=TILT_AXIS,
+                                             output="device")
+    assert np.array_equal(proj["linear"].tilt_matrices(angles, TILT_AXIS),
+                          tms)
+    assert np.array_equal(
+        proj["linear"].tilt_matrices(angles, RECON_TILT_AXIS), rms)
+    rprojs = proj["linear"].project(angles, tilt_axis=RECON_TILT_AXIS,
+                                    output="device")
+    wbp = wbp_reconstruct(rprojs, rms, big, device="cuda", output="device")
+    sirt = sirt_reconstruct(rprojs, rms, big, iterations=SIRT_ITERATIONS,
+                            device="cuda", output="device")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    tilt_launches = {S.NAME: slab.launches, K.NAME: walk.launches}
+    assert tilt_launches == expected_tilt, (tilt_launches, expected_tilt)
+    assert tilt_launches[S.NAME] > 0 and tilt_launches[K.NAME] == 0, \
+        ("every tilt launch goes to the slab kernel", tilt_launches)
+
+    proj_err = {}
+    plain_projs = {}
+    for name, interp, ms, got in (
+            ("linear", "linear", tms, projs["linear"]),
+            ("filt_bspline", "filt_bspline", tms, projs["filt_bspline"]),
+            ("reconstruction_series", "linear", rms, rprojs)):
+        assert got.shape == (len(ms), SIZE, SIZE)
+        assert torch.isfinite(got).all()
+        plain_projs[name] = plain_project_stack(
+            proj[interp].data, ms, interp, "constant", 0)
+        proj_err[name] = float((got - plain_projs[name]).abs().max())
+        assert proj_err[name] <= PROJ_ATOL, (name, proj_err[name])
+    # scipy on the first tilt: columns holding a knife-edge voxel are left
+    # out, as in tests/test_models.py
+    scipy_err = {}
+    for interp, order in (("linear", 1), ("filt_bspline", 3)):
+        want = ndimage.affine_transform(
+            vol_np.astype(np.float64), tms[0].astype(np.float64),
+            order=order, prefilter=True, mode="constant",
+            cval=0.0).sum(axis=0)
+        near = knife_mask(torch, tms[0], big, torch.device("cpu")).any(dim=0)
+        diff = np.abs(projs[interp][0].cpu().numpy().astype(np.float64)
+                      - want)
+        scipy_err[interp] = float(np.where(near.numpy(), 0.0, diff).max())
+        assert scipy_err[interp] <= PROJ_SCIPY_ATOL, (interp,
+                                                      scipy_err[interp])
+    rplain = plain_projs["reconstruction_series"]
+    wbp_plain = wbp_reconstruct(rplain, rms, big, device="cuda",
+                                output="device")
+    sirt_plain = sirt_reconstruct(rplain, rms, big,
+                                  iterations=SIRT_ITERATIONS, device="cuda",
+                                  output="device", _plain_forward=True)
+    recon_err = {}
+    corr = {}
+    inner = (slice(SIZE // 10, -(SIZE // 10)),) * 3
+    for name, got, want in (("wbp", wbp, wbp_plain),
+                            ("sirt", sirt, sirt_plain)):
+        assert got.shape == big and torch.isfinite(got).all()
+        scale = float(want.abs().max())
+        recon_err[name] = float((got - want).abs().max()) / scale
+        assert recon_err[name] <= RECON_RTOL, (name, recon_err[name])
+        # how much of the (white-noise) volume a +-60 degree series
+        # recovers, away from the edges; reported, not checked
+        corr[name] = float(np.corrcoef(got[inner].cpu().numpy().ravel(),
+                                       vol_np[inner].ravel())[0, 1])
+    assert S.overflows(dev) == 0
+    first = chunks_of(tms)[0]
+    emit("tilt", shape=list(big), tilts=len(tms), tilt_axis=TILT_AXIS,
+         reconstruction_tilt_axis=RECON_TILT_AXIS,
+         chunks=[len(c) for c in chunks_of(tms)], seconds=seconds,
+         launches=tilt_launches, expected_launches=expected_tilt,
+         extents={"linear": list(plan_of(first, big, 1).extents),
+                  "cubic": list(plan_of(first, big, 3).extents),
+                  "reconstruction": list(
+                      plan_of(chunks_of(rms)[0], big, 1).extents)},
+         max_abs_err_vs_plain=proj_err, proj_atol=PROJ_ATOL,
+         scipy_first_tilt=scipy_err, scipy_atol=PROJ_SCIPY_ATOL,
+         recon_rel_err_vs_plain_forward=recon_err, recon_rtol=RECON_RTOL,
+         interior_correlation_with_volume=corr,
+         sirt_iterations=SIRT_ITERATIONS, overflows=S.overflows(dev))
+    del wbp, sirt, wbp_plain, sirt_plain, plain_projs, rplain
+
+    # --------------------------------------------------------- 7. times
     coef = {1: sv_lin.data, 3: sv_cub.data}
-    rots_dev = torch.from_numpy(rots).to(dev)
-    out = torch.empty((SIZE,) * 3, device=dev)
-    stack = torch.empty((N_ROT,) + (SIZE,) * 3, device=dev)
-    shape = (SIZE,) * 3
-    inside = inside_voxels(torch, vt, shape, rots_dev)
-    t = {"inside_fraction": sum(inside) / (len(inside) * SIZE ** 3)}
-    for order, name in ((1, "linear"), (3, "cubic")):
+    out = torch.empty(big, device=dev)
+    stack = torch.empty((len(tms),) + big, device=dev)
+    t = {}
+    sets = {"tilt": tms, "random": rots}
+    for set_name, ms in sets.items():
+        ms_dev = torch.from_numpy(ms).to(dev)
+        inside = inside_voxels(torch, vt, big, ms_dev)
+        t[f"{set_name}_inside_fraction"] = sum(inside) / (len(inside)
+                                                          * SIZE ** 3)
+        for order, name in ((1, "linear"), (3, "cubic")):
+            plans = [plan_of(m, big, order) for m in ms]
+            fit = [i for i, p in enumerate(plans) if p is not None]
+            state = {"i": 0}
+
+            def one_slab():
+                i = fit[state["i"] % len(fit)]
+                slab(coef[order], ms_dev[i], order, out=out, plan=plans[i])
+                state["i"] += 1
+
+            def one_walk():
+                i = fit[state["i"] % len(fit)]
+                walk(coef[order], ms_dev[i], order, out=out)
+                state["i"] += 1
+
+            def every_walk():
+                walk(coef[order], ms_dev[state["i"] % len(ms)], order,
+                     out=out)
+                state["i"] += 1
+
+            key = f"{set_name}_{name}"
+            t[f"{key}_on_slab"] = len(fit)
+            # A on every matrix of the set, beside its bound
+            t[f"{key}_walk_ms"] = time_ms(torch, every_walk,
+                                          reps=2 * len(ms))
+            t[f"{key}_walk_bound_ms"], t[f"{key}_walk_bound_by"] = bound_ms(
+                order, big, big, inside, per_launch=1)
+            # single launches of both kernels over the matrices B takes
+            t[f"{key}_slab_ms"] = time_ms(torch, one_slab, reps=2 * len(fit))
+            t[f"{key}_walk_same_ms"] = time_ms(torch, one_walk,
+                                               reps=2 * len(fit))
+            fit_in = [inside[i] for i in fit]
+            t[f"{key}_bound_ms"], t[f"{key}_bound_by"] = bound_ms(
+                order, big, big, fit_in, per_launch=1)
+            # one launch of the whole set
+            envelope = plan_of(ms, big, order)
+            dst = stack[:len(ms)]
+            t[f"{key}_batch_walk_ms_per_matrix"] = time_ms(
+                torch, lambda: walk(coef[order], ms_dev, order, out=dst),
+                reps=3) / len(ms)
+            t[f"{key}_batch_slab_ms_per_matrix"] = None if envelope is None \
+                else time_ms(torch, lambda: slab(coef[order], ms_dev, order,
+                                                 out=dst, plan=envelope),
+                             reps=3) / len(ms)
+            t[f"{key}_batch_bound_ms_per_matrix"], t[
+                f"{key}_batch_bound_by"] = bound_ms(order, big, big, inside,
+                                                    per_launch=len(ms))
+            if envelope is not None:
+                t[f"{key}_batch_blocks_per_sm"] = S.blocks_per_sm(envelope,
+                                                                  dev)
+            t[f"{key}_plain_ms"] = time_ms(
+                torch, lambda: affine_sample(coef[order], ms_dev[fit[0]],
+                                             interp_of[order],
+                                             prefiltered=True),
+                reps=3, warmup=1)
+        # library yardstick: one trilinear grid_sample of the same
+        # coordinates (align_corners=True maps -1..1 onto voxel centres
+        # 0..n-1); timed only, the grid is built outside the timed region
+        coords = vt.ops.affine_coords(big, ms_dev[0])
+        grid = torch.stack([2.0 * coords[2 - a] / (SIZE - 1) - 1.0
+                            for a in range(3)], dim=-1)[None]
+        src = coef[1][None, None]
+        t[f"{set_name}_grid_sample_trilinear_ms"] = time_ms(
+            torch, lambda: torch.nn.functional.grid_sample(
+                src, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True), reps=20)
+        del coords, grid
+    del stack
+    # the main path's end-to-end metric: StaticVolume.affine per rotation,
+    # through the planner (B where the box fits, else A)
+    for order, name, sv in ((1, "linear", sv_lin), (3, "cubic", sv_cub)):
         state = {"i": 0}
-
-        def one():
-            kernel(coef[order], rots_dev[state["i"] % N_ROT], order, out=out)
-            state["i"] += 1
-
-        t[f"kernel_{name}_ms"] = time_ms(torch, one, reps=3 * N_ROT)
-        t[f"batch_{name}_ms_per_matrix"] = time_ms(
-            torch, lambda: kernel(coef[order], rots_dev, order, out=stack),
-            reps=3) / N_ROT
-        sv = sv_lin if order == 1 else sv_cub
 
         def api():
             sv.affine(rots[state["i"] % N_ROT], output=out)
@@ -353,15 +694,21 @@ def main():
 
         t[f"static_volume_affine_{name}_ms"] = time_ms(torch, api,
                                                        reps=3 * N_ROT)
-        interp = "linear" if order == 1 else "bspline"
-        t[f"plain_{name}_ms"] = time_ms(
-            torch, lambda: affine_sample(coef[order], rots_dev[0], interp,
-                                         prefiltered=True), reps=3, warmup=1)
-        t[f"bound_{name}_ms"], t[f"bound_{name}_by"] = bound_ms(
-            order, shape, shape, inside, per_launch=1)
-        t[f"bound_batch_{name}_ms_per_matrix"], t[
-            f"bound_batch_{name}_by"] = bound_ms(order, shape, shape, inside,
-                                                 per_launch=N_ROT)
+    for interp in ("linear", "filt_bspline"):
+        t[f"projector_{interp}_ms_per_tilt"] = time_ms(
+            torch, lambda: proj[interp].project(
+                angles, tilt_axis=TILT_AXIS, output="device"),
+            reps=3, warmup=1) / len(tms)
+    t["wbp_ms"] = time_ms(torch, lambda: wbp_reconstruct(
+        rprojs, rms, big, device="cuda", output="device"), reps=3, warmup=1)
+    sirt_1 = time_ms(torch, lambda: sirt_reconstruct(
+        rprojs, rms, big, iterations=1, device="cuda", output="device"),
+        reps=2, warmup=1)
+    sirt_4 = time_ms(torch, lambda: sirt_reconstruct(
+        rprojs, rms, big, iterations=4, device="cuda", output="device"),
+        reps=2, warmup=1)
+    t["sirt_ms_per_iteration"] = (sirt_4 - sirt_1) / 3
+    t["sirt_setup_ms"] = sirt_1 - t["sirt_ms_per_iteration"]
     vol_dev = torch.from_numpy(vol_np).to(dev)
     t["prefilter_mirror_ms"] = time_ms(
         torch, lambda: bspline_prefilter(vol_dev), reps=5)
@@ -370,37 +717,60 @@ def main():
     t["one_shot_filt_bspline_ms"] = time_ms(
         torch, lambda: vt.affine(vol_dev, rots[0], "filt_bspline",
                                  device="cuda", output="device"), reps=5)
-    # library yardstick: one trilinear grid_sample of the same coordinates
-    # (align_corners=True maps -1..1 onto voxel centres 0..n-1); timed
-    # only, the grid is built outside the timed region
-    coords = vt.ops.affine_coords(shape, rots_dev[0])
-    grid = torch.stack([2.0 * coords[2 - a] / (shape[2 - a] - 1) - 1.0
-                        for a in range(3)], dim=-1)[None]
-    src = coef[1][None, None]
-    t["grid_sample_trilinear_ms"] = time_ms(
-        torch, lambda: torch.nn.functional.grid_sample(
-            src, grid, mode="bilinear", padding_mode="zeros",
-            align_corners=True), reps=3 * N_ROT)
-    emit("times", shape=list(shape), method="CUDA events, back-to-back "
+    emit("times", shape=list(big), method="CUDA events, back-to-back "
          "launches after warm-up; the 62.5 MB volume exceeds the 50 MB L2",
          **t)
 
+    main_tilt = {k: main_launches[k] + tilt_launches[k]
+                 for k in main_launches}
     kernels = [{
+        "name": S.NAME, "route": "cuda", "source": S.SOURCE,
+        "replaces": S.REPLACES, "launches": main_tilt[S.NAME],
+        "launches_by_path": {"main": main_launches[S.NAME],
+                             "tilt": tilt_launches[S.NAME]},
+        "max_abs_err": max(slab_worst[1], slab_worst[3]),
+        "ms": t["tilt_linear_slab_ms"], "plain_ms": t["tilt_linear_plain_ms"],
+        "bound_ms": t["tilt_linear_bound_ms"],
+        "bound_by": t["tilt_linear_bound_by"],
+        "library_ms": t["tilt_grid_sample_trilinear_ms"],
+        "shape": list(big), "matrices": "41-tilt series, linear, one per "
+        "launch", "max_abs_err_all_voxels": slab_worst_all,
+        "equal_to_walk": True, "overflows": S.overflows(dev),
+        "walk_same_matrices_ms": t["tilt_linear_walk_same_ms"],
+        "batch_ms_per_matrix": t["tilt_linear_batch_slab_ms_per_matrix"],
+        "batch_bound_ms_per_matrix":
+            t["tilt_linear_batch_bound_ms_per_matrix"],
+        "cubic": {"ms": t["tilt_cubic_slab_ms"],
+                  "plain_ms": t["tilt_cubic_plain_ms"],
+                  "bound_ms": t["tilt_cubic_bound_ms"],
+                  "bound_by": t["tilt_cubic_bound_by"], "library_ms": None,
+                  "walk_same_matrices_ms": t["tilt_cubic_walk_same_ms"],
+                  "batch_ms_per_matrix":
+                      t["tilt_cubic_batch_slab_ms_per_matrix"],
+                  "max_abs_err": slab_worst[3]},
+    }, {
         "name": K.NAME, "route": "cuda", "source": K.SOURCE,
-        "replaces": K.REPLACES, "launches": launches,
+        "replaces": K.REPLACES, "launches": main_tilt[K.NAME],
+        "launches_by_path": {"main": main_launches[K.NAME],
+                             "tilt": tilt_launches[K.NAME]},
         "max_abs_err": max(worst[1], worst[3], main_err[1], main_err[3]),
-        "ms": t["kernel_linear_ms"], "plain_ms": t["plain_linear_ms"],
-        "bound_ms": t["bound_linear_ms"], "bound_by": t["bound_linear_by"],
-        "library_ms": t["grid_sample_trilinear_ms"],
-        "shape": list(shape), "max_abs_err_all_voxels": worst_all,
-        "batch_ms_per_matrix": t["batch_linear_ms_per_matrix"],
-        "batch_bound_ms_per_matrix": t["bound_batch_linear_ms_per_matrix"],
-        "cubic": {"ms": t["kernel_cubic_ms"], "plain_ms": t["plain_cubic_ms"],
-                  "bound_ms": t["bound_cubic_ms"],
-                  "bound_by": t["bound_cubic_by"], "library_ms": None,
-                  "batch_ms_per_matrix": t["batch_cubic_ms_per_matrix"],
-                  "batch_bound_ms_per_matrix":
-                      t["bound_batch_cubic_ms_per_matrix"],
+        "ms": t["random_linear_walk_ms"],
+        "plain_ms": t["random_linear_plain_ms"],
+        "bound_ms": t["random_linear_walk_bound_ms"],
+        "bound_by": t["random_linear_walk_bound_by"],
+        "library_ms": t["random_grid_sample_trilinear_ms"],
+        "shape": list(big), "matrices": "16 random 'sxyz' rotations, "
+        "linear, one per launch", "max_abs_err_all_voxels": worst_all,
+        "batch_ms_per_matrix": t["random_linear_batch_walk_ms_per_matrix"],
+        "batch_bound_ms_per_matrix":
+            t["random_linear_batch_bound_ms_per_matrix"],
+        "cubic": {"ms": t["random_cubic_walk_ms"],
+                  "plain_ms": t["random_cubic_plain_ms"],
+                  "bound_ms": t["random_cubic_walk_bound_ms"],
+                  "bound_by": t["random_cubic_walk_bound_by"],
+                  "library_ms": None,
+                  "batch_ms_per_matrix":
+                      t["random_cubic_batch_walk_ms_per_matrix"],
                   "max_abs_err": max(worst[3], main_err[3])},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -296,6 +296,9 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import voltools_tpu_torch, voltools_tpu_torch.convert\n"
         "import voltools_tpu_torch.kernels.affine_resample\n"
+        "import voltools_tpu_torch.kernels.affine_slab\n"
+        "import voltools_tpu_torch.kernels.planner\n"
+        "import voltools_tpu_torch.models\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m.startswith('jaxlib.')\n"
         "       or m == 'voltools_tpu' or m.startswith('voltools_tpu.')]\n"

@@ -1,4 +1,4 @@
-"""The CUDA affine kernel on the card: skipped on a host without one.
+"""The CUDA affine kernels on the card: skipped on a host without one.
 
 These tests import torch and the port only, so they run where JAX is not
 installed.  ``tests/conftest.py`` imports JAX, so on such a machine run::
@@ -6,7 +6,7 @@ installed.  ``tests/conftest.py`` imports JAX, so on such a machine run::
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py -q
 
-The first test to launch the kernel builds it with nvcc."""
+The first test to launch a kernel builds it with nvcc."""
 
 import pytest
 
@@ -16,6 +16,11 @@ import numpy as np
 
 import voltools_tpu_torch as vt
 from voltools_tpu_torch.kernels.affine_resample import affine_resample
+from voltools_tpu_torch.kernels.affine_slab import (affine_slab,
+                                                    blocks_per_sm, overflows)
+from voltools_tpu_torch.kernels.planner import SlabPlan, choose_plan
+from voltools_tpu_torch.models import (TiltSeriesProjector, sirt_reconstruct,
+                                       wbp_reconstruct)
 from voltools_tpu_torch.ops.sampling import affine_sample
 from voltools_tpu_torch.utils import transform_matrix
 
@@ -122,3 +127,91 @@ def test_api_on_cuda_matches_cpu(dev, interpolation):
         vt.affine(vol, ms[1], interpolation, reshape=True, device="cuda"),
         vt.affine(vol, ms[1], interpolation, reshape=True, device="cpu"),
         atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", [(23, 29, 31), (1, 9, 10), (6, 1, 140)])
+@pytest.mark.parametrize("mode", ["constant", "border"])
+@pytest.mark.parametrize("order", [1, 3])
+def test_slab_kernel_equals_walk_kernel(dev, shape, mode, order):
+    """The two kernels share their per-voxel arithmetic: bit-identical
+    results, and the plain version's to within ATOL."""
+    vol = torch.from_numpy(np.random.default_rng(1).random(shape).astype(
+        np.float32)).to(dev)
+    ms = matrices(shape, seed=shape[0])
+    ms_dev = ms.to(dev)
+    interp = "linear" if order == 1 else "bspline"
+    before = overflows(dev)
+    for cval in (0.0, 1.5):
+        for i in range(len(ms)):
+            plan = choose_plan(ms[i].numpy(), shape, interp, mode)
+            assert plan is not None and blocks_per_sm(plan, dev) >= 1
+            got = affine_slab(vol, ms_dev[i], order, mode, cval, plan=plan)
+            assert torch.equal(got, affine_resample(vol, ms_dev[i], order,
+                                                    mode, cval))
+            want = affine_sample(vol, ms_dev[i], interp, mode, cval,
+                                 prefiltered=True)
+            torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+    assert overflows(dev) == before
+
+
+def test_slab_batch_counter_and_out_buffer(dev):
+    shape = (12, 13, 14)
+    vol = torch.rand(shape, device=dev)
+    ms = matrices(shape, seed=1)
+    plan = choose_plan(ms.numpy(), shape, "bspline")
+    ms = ms.to(dev)
+    before = affine_slab.launches
+    out = torch.empty(shape, device=dev)
+    assert affine_slab(vol, ms[0], 3, out=out) is out    # plans here
+    stack = affine_slab(vol, ms, 3, plan=plan)
+    assert affine_slab.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(out, stack[0])
+    assert torch.equal(stack, affine_resample(vol, ms, 3))
+
+
+def test_slab_overflow_is_counted_and_still_right(dev):
+    """A plan whose box is too small for the matrix: the kernel clips the
+    box, reads the taps outside it from global memory, and counts."""
+    shape = (20, 21, 22)
+    vol = torch.rand(shape, device=dev)
+    m = matrices(shape, seed=2)[0].to(dev)
+    small = SlabPlan(1, "constant", shape, shape, (2, 2, 2))
+    before = overflows(dev)
+    got = affine_slab(vol, m, 1, plan=small)
+    assert overflows(dev) > before
+    assert torch.equal(got, affine_resample(vol, m, 1))
+
+
+def test_slab_launch_leaves_current_device(dev):
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    vol = torch.rand((9, 10, 11), device=last)
+    m = matrices((9, 10, 11), seed=5)[0].to(last)
+    torch.cuda.set_device(0)
+    got = affine_slab(vol, m, 3)
+    assert torch.cuda.current_device() == 0
+    assert got.device == last
+    assert torch.equal(got, affine_resample(vol, m, 3))
+
+
+@pytest.mark.parametrize("interpolation", ["linear", "filt_bspline"])
+def test_projector_and_reconstruction_on_cuda_match_cpu(dev, interpolation):
+    vol = np.random.default_rng(6).random((20, 22, 24)).astype(np.float32)
+    angles = np.arange(-60.0, 61.0, 20.0)
+    gpu = TiltSeriesProjector(vol, interpolation, device="cuda")
+    cpu = TiltSeriesProjector(vol, interpolation, device="cpu")
+    before = affine_slab.launches
+    p_gpu = gpu.project(angles, tilt_axis=0, output="device")
+    assert p_gpu.is_cuda and affine_slab.launches == before + 1
+    p_cpu = cpu.project(angles, tilt_axis=0)
+    # each projection sums 20 voxels that agree to ATOL
+    np.testing.assert_allclose(p_gpu.cpu().numpy(), p_cpu, atol=20 * ATOL)
+    ms = cpu.tilt_matrices(angles, tilt_axis=0)
+    np.testing.assert_allclose(
+        wbp_reconstruct(p_gpu, ms, vol.shape, device="cuda"),
+        wbp_reconstruct(p_cpu, ms, vol.shape, device="cpu"), atol=1e-4)
+    np.testing.assert_allclose(
+        sirt_reconstruct(p_gpu, ms, vol.shape, iterations=3, nonneg=True,
+                         device="cuda"),
+        sirt_reconstruct(p_cpu, ms, vol.shape, iterations=3, nonneg=True,
+                         device="cpu"), atol=1e-4)

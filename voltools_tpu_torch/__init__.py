@@ -2,10 +2,15 @@
 
 3-D affine transforms of volumes on an NVIDIA GPU: five interpolation modes
 (trilinear + four cubic B-spline variants), ``'constant'`` and ``'border'``
-edges, a one-shot functional API and a device-resident ``StaticVolume`` with
-batched transforms.  The resampling runs in a hand-written CUDA kernel
-(``csrc/affine_resample.cu``), built with ``nvcc`` at first use; the plain
-torch versions serve ``device='cpu'``.
+edges, a one-shot functional API, a device-resident ``StaticVolume`` with
+batched transforms, and the tilt-series models (``models``: projector,
+weighted back-projection, SIRT).  The resampling runs in two hand-written
+CUDA kernels that compute the same function: ``csrc/affine_slab.cu``
+stages each output brick's source box in shared memory and takes the
+matrices whose box fits its budget, ``csrc/affine_resample.cu`` gathers
+from global memory and takes the rest (``kernels/planner.py``).  Both are
+built with ``nvcc`` at first use; the plain torch versions serve
+``device='cpu'``.
 
 The package imports torch, numpy and scipy only -- never JAX -- and probes
 no device at import.
@@ -23,7 +28,7 @@ from .transforms import (
 )
 from .ops.interpolation import AVAILABLE_INTERPOLATIONS
 from .volume import StaticVolume
-from . import ops, utils
+from . import models, ops, utils
 
 
 def __getattr__(name):
@@ -45,6 +50,7 @@ __all__ = [
     "last_dispatch",
     "AVAILABLE_INTERPOLATIONS",
     "AVAILABLE_DEVICES",
+    "models",
     "ops",
     "utils",
 ]

@@ -26,8 +26,8 @@
 // the output inside for a random rotation, cubic needs about 2.9 GFLOP,
 // about 43 us: cubic is bound by arithmetic, a little above the memory
 // time; linear (about 0.7 GFLOP, 10 us) by memory.  This kernel itself is
-// not separable: it forms wz*wy per (z, y) pair and does a mul and an FMA
-// per tap, about 274 flops per voxel.
+// not separable: it forms wz*wy per (z, y) pair and does two multiplies
+// and an add per tap, about 274 flops per voxel.
 //
 // Design against that bound, kept simple: one thread per output voxel, 128
 // threads along x, so each warp's stores are coalesced.  Taps are gathered
@@ -36,10 +36,11 @@
 // reused from L1/L2 by the threads around it.  A fast design (shared-memory
 // source tiles staged with TMA) is later work.
 //
-// Coordinates are computed as ((m0*u + m1*v) + m2*w) + m3 with one rounding
-// per operation (__fmul_rn / __fadd_rn, no FMA contraction): the plain
-// PyTorch version (ops/sampling.py::affine_coords) computes the same values
-// bit for bit, so both floor() every coordinate alike.
+// The per-voxel arithmetic (coordinates, weights, edges, tap sum) is in
+// resample_taps.cuh, shared with affine_slab.cu: one rounding per
+// operation, in the order of the plain PyTorch version, so both kernels
+// and the plain version floor every coordinate alike, and the two kernels
+// agree bit for bit.
 //
 // grid.x runs over (x block, y, z) of the output, grid.y over the matrices;
 // output offsets are 64-bit.  One build serves every matrix, cval and
@@ -49,37 +50,11 @@
 
 #include <climits>
 
+#include "resample_taps.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ int mirror_index(int idx, int n) {
-  // scipy 'mirror' (no edge repeat).  C's % takes the sign of the
-  // dividend, so a negative remainder is folded back into [0, period).
-  if (n == 1) return 0;
-  const int period = 2 * (n - 1);
-  int r = idx % period;
-  if (r < 0) r += period;
-  return r >= n ? period - r : r;
-}
-
-__device__ __forceinline__ void bspline_weights(float f, float w[4]) {
-  const float g = 1.0f - f;
-  const float f2 = f * f;
-  const float g2 = g * g;
-  w[0] = (1.0f / 6.0f) * g2 * g;
-  w[1] = 2.0f / 3.0f - 0.5f * f2 * (2.0f - f);
-  w[2] = 2.0f / 3.0f - 0.5f * g2 * (2.0f - g);
-  w[3] = (1.0f / 6.0f) * f2 * f;
-}
-
-// Tap index along one axis and whether it lies inside [0, n).
-template <bool CONSTANT, int ORDER>
-__device__ __forceinline__ int tap_index(int i, int n, bool* ok) {
-  *ok = (i >= 0) && (i < n);
-  if constexpr (CONSTANT && ORDER == 3) return mirror_index(i, n);
-  return min(max(i, 0), n - 1);
-}
 
 template <int ORDER, bool CONSTANT>
 __global__ void __launch_bounds__(kThreads)
@@ -95,90 +70,27 @@ affine_resample_kernel(const float* __restrict__ vol, int d0, int d1, int d2,
   const int b = blockIdx.y;
 
   const float* m = mats + 16 * b;
-  const float fz = static_cast<float>(z);
-  const float fy = static_cast<float>(y);
-  const float fx = static_cast<float>(x);
   float s[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     const float* r = m + 4 * a;
-    s[a] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(__ldg(r), fz),
-                                         __fmul_rn(__ldg(r + 1), fy)),
-                               __fmul_rn(__ldg(r + 2), fx)),
-                     __ldg(r + 3));
+    s[a] = resample::source_coord(__ldg(r), __ldg(r + 1), __ldg(r + 2),
+                                  __ldg(r + 3), static_cast<float>(z),
+                                  static_cast<float>(y),
+                                  static_cast<float>(x));
   }
 
   float* dst = out + static_cast<long long>(b) * o0 * o1 * o2 +
                static_cast<long long>(row) * o2 + x;
-
-  bool inside;
-  if constexpr (CONSTANT) {
-    inside = s[0] >= 0.0f && s[0] <= static_cast<float>(d0 - 1) &&
-             s[1] >= 0.0f && s[1] <= static_cast<float>(d1 - 1) &&
-             s[2] >= 0.0f && s[2] <= static_cast<float>(d2 - 1);
-  } else {
-    inside = s[0] > -0.5f && s[0] < static_cast<float>(d0) - 0.5f &&
-             s[1] > -0.5f && s[1] < static_cast<float>(d1) - 0.5f &&
-             s[2] > -0.5f && s[2] < static_cast<float>(d2) - 0.5f;
-  }
-  if (!inside) {
+  if (!resample::inside<CONSTANT>(s, d0, d1, d2)) {
     *dst = cval;
     return;
   }
-
-  const float z0f = floorf(s[0]);
-  const float y0f = floorf(s[1]);
-  const float x0f = floorf(s[2]);
-  const int z0 = static_cast<int>(z0f);
-  const int y0 = static_cast<int>(y0f);
-  const int x0 = static_cast<int>(x0f);
-  const float tz = s[0] - z0f;
-  const float ty = s[1] - y0f;
-  const float tx = s[2] - x0f;
-
-  constexpr int kTaps = ORDER == 1 ? 2 : 4;
-  constexpr int kFirst = ORDER == 1 ? 0 : -1;
-  float wz[kTaps], wy[kTaps], wx[kTaps];
-  if constexpr (ORDER == 1) {
-    wz[0] = 1.0f - tz; wz[1] = tz;
-    wy[0] = 1.0f - ty; wy[1] = ty;
-    wx[0] = 1.0f - tx; wx[1] = tx;
-  } else {
-    bspline_weights(tz, wz);
-    bspline_weights(ty, wy);
-    bspline_weights(tx, wx);
-  }
-
-  const long long plane = static_cast<long long>(d1) * d2;
-  long long zoff[kTaps];
-  int yoff[kTaps], xi[kTaps];
-  bool okz[kTaps], oky[kTaps], okx[kTaps];
-#pragma unroll
-  for (int t = 0; t < kTaps; ++t) {
-    zoff[t] = tap_index<CONSTANT, ORDER>(z0 + kFirst + t, d0, &okz[t]) * plane;
-    yoff[t] = tap_index<CONSTANT, ORDER>(y0 + kFirst + t, d1, &oky[t]) * d2;
-    xi[t] = tap_index<CONSTANT, ORDER>(x0 + kFirst + t, d2, &okx[t]);
-  }
-
-  // summation order of the plain version: acc += ((wz * wy) * wx) * v
-  float acc = 0.0f;
-#pragma unroll
-  for (int tz_ = 0; tz_ < kTaps; ++tz_) {
-#pragma unroll
-    for (int ty_ = 0; ty_ < kTaps; ++ty_) {
-      const float w_zy = wz[tz_] * wy[ty_];
-      const float* line = vol + zoff[tz_] + yoff[ty_];
-#pragma unroll
-      for (int tx_ = 0; tx_ < kTaps; ++tx_) {
-        // 'border' skips out-of-range taps (they count zero); 'constant'
-        // taps are always in range after clipping or mirroring
-        const bool ok = CONSTANT || (okz[tz_] && oky[ty_] && okx[tx_]);
-        const float v = ok ? __ldg(line + xi[tx_]) : 0.0f;
-        acc = acc + w_zy * wx[tx_] * v;
-      }
-    }
-  }
-  *dst = acc;
+  const int n[3] = {d0, d1, d2};
+  resample::Taps<ORDER> taps;
+  resample::make_taps<ORDER, CONSTANT>(s, n, &taps);
+  *dst = resample::tap_sum<ORDER, CONSTANT>(
+      taps, resample::GlobalSource{vol, d1, d2});
 }
 
 template <int ORDER, bool CONSTANT>

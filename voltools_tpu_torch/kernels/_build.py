@@ -5,8 +5,9 @@ a plain C interface and loaded with ``ctypes``; PyTorch's headers are never
 included, so a build takes seconds.  Nothing is built or loaded at import:
 the first launch of a kernel builds its library.  Libraries go to
 ``voltools_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash of
-the source and the flags, so a changed source is rebuilt and an unchanged
-one is reused by later processes.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so a changed
+source or header is rebuilt and an unchanged one is reused by later
+processes.
 """
 
 from __future__ import annotations
@@ -49,11 +50,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """Where the library built from ``csrc/<name>.cu`` lives: named by a
+    hash of the source, every header it may include and the flags."""
+    digest = hashlib.sha256()
+    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -96,6 +96,28 @@ def _check(volume, matrices, order, mode, out_shape, out):
     return full
 
 
+def _plain(volume, matrices, order, mode, cval, out_shape, out):
+    """The kernels' plain version, for CPU tensors."""
+    plain = affine_sample if matrices.ndim == 2 else affine_sample_batch
+    result = plain(volume, matrices, _PLAIN_INTERPOLATION[order], mode,
+                   cval, prefiltered=True, out_shape=out_shape)
+    if out is None:
+        return result
+    return out.copy_(result)
+
+
+def _check_launch(volume, matrices) -> int:
+    """Limits of a CUDA launch; returns the number of matrices."""
+    if volume.device.type != "cuda":
+        raise ValueError(f"unsupported device {volume.device}")
+    n = 1 if matrices.ndim == 2 else matrices.shape[0]
+    if n > MAX_BATCH:
+        raise ValueError(f"at most {MAX_BATCH} matrices per launch, got {n}")
+    if volume.shape[1] * volume.shape[2] >= 2 ** 31:
+        raise ValueError("a z-plane of the volume must hold < 2**31 voxels")
+    return n
+
+
 def affine_resample(volume: torch.Tensor, matrices: torch.Tensor, order: int,
                     mode: str = "constant", cval: float = 0.0,
                     out_shape=None, out: torch.Tensor = None) -> torch.Tensor:
@@ -113,20 +135,8 @@ def affine_resample(volume: torch.Tensor, matrices: torch.Tensor, order: int,
     full = _check(volume, matrices, order, mode, out_shape, out)
 
     if volume.device.type == "cpu":
-        plain = affine_sample if matrices.ndim == 2 else affine_sample_batch
-        result = plain(volume, matrices, _PLAIN_INTERPOLATION[order], mode,
-                       cval, prefiltered=True, out_shape=out_shape)
-        if out is None:
-            return result
-        return out.copy_(result)
-    if volume.device.type != "cuda":
-        raise ValueError(f"unsupported device {volume.device}")
-
-    n = 1 if matrices.ndim == 2 else matrices.shape[0]
-    if n > MAX_BATCH:
-        raise ValueError(f"at most {MAX_BATCH} matrices per launch, got {n}")
-    if volume.shape[1] * volume.shape[2] >= 2 ** 31:
-        raise ValueError("a z-plane of the volume must hold < 2**31 voxels")
+        return _plain(volume, matrices, order, mode, cval, out_shape, out)
+    n = _check_launch(volume, matrices)
     if out is None:
         out = torch.empty(full, dtype=torch.float32, device=volume.device)
     if n == 0:

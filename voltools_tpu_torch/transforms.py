@@ -5,8 +5,11 @@ The port's counterpart of ``voltools_tpu/transforms.py``: ``transform``,
 ``interpolation``, ``reshape``, ``profile``, ``output``, ``device``, ``mode``
 and ``cval``.
 
-Devices: ``'cuda'`` (the default) and ``'cuda:N'`` run the CUDA affine
-kernel, after the B-spline prefilter for ``filt_bspline*``; ``'cpu'`` runs
+Devices: ``'cuda'`` (the default) and ``'cuda:N'`` run one of the two CUDA
+affine kernels, after the B-spline prefilter for ``filt_bspline*``: the
+slab kernel where :func:`~.kernels.planner.choose_plan` finds that the
+matrix's source box fits its shared-memory budget, the walk kernel
+otherwise.  Both compute the same function, bit for bit.  ``'cpu'`` runs
 the port's plain torch versions and is only taken when asked for.  With no
 CUDA device the default raises.
 
@@ -27,6 +30,8 @@ import numpy as np
 import torch
 
 from .kernels.affine_resample import affine_resample
+from .kernels.affine_slab import affine_slab
+from .kernels.planner import SMEM_BUDGET, choose_plan, slab_extents
 from .ops.interpolation import (AVAILABLE_INTERPOLATIONS, MODES,
                                 needs_prefilter, spline_order)
 from .ops.prefilter import bspline_prefilter
@@ -47,7 +52,7 @@ Triple = Union[float, Tuple[float, float, float], np.ndarray]
 
 class PerformanceFallbackWarning(RuntimeWarning):
     """Kept for API parity with the JAX package, where a matrix outside the
-    Pallas kernels' regime falls back to a slower path.  The CUDA affine
+    Pallas kernels' regime falls back to a slower path.  The port's walk
     kernel serves every matrix, so the port never issues it."""
 
 
@@ -56,9 +61,12 @@ _LAST_DISPATCH = threading.local()
 
 def last_dispatch():
     """Diagnostics: how the calling thread's most recent transform was
-    served -- ``{'impl': 'cuda'|'torch', 'variant': None, 'reason': str}``.
-    ``'cuda'`` is the CUDA affine kernel, ``'torch'`` the plain version on
-    the CPU."""
+    served -- ``{'impl': 'cuda'|'torch', 'variant': SlabPlan|None,
+    'reason': str}``.  ``'cuda'`` is a CUDA kernel, ``'torch'`` the plain
+    version on the CPU.  ``variant`` is the planner's
+    :class:`~.kernels.planner.SlabPlan` when the slab kernel took the call
+    (or would have, on the CPU), ``None`` for the walk kernel; ``reason``
+    names the kernel and, for the walk kernel, the box that did not fit."""
     return getattr(_LAST_DISPATCH, "info", None)
 
 
@@ -92,6 +100,16 @@ def _finish(result_np, output):
     return None
 
 
+def _device(device: str) -> torch.device:
+    """The ``torch.device`` of a device string that names a usable device;
+    any other raises."""
+    available = get_available_devices()
+    if device not in available:
+        raise ValueError(
+            f"Unknown device ({device}), must be one of {available}")
+    return resolve_device(device)
+
+
 def _as_tensor(data, device: torch.device) -> torch.Tensor:
     """``data`` (numpy array or tensor) as a float32 tensor on ``device``.
     A read-only numpy array is copied first: torch cannot wrap one."""
@@ -109,14 +127,37 @@ def _device_matrices(matrices: np.ndarray, device: torch.device):
     return host
 
 
-def _record(device: torch.device):
-    """Note for :func:`last_dispatch` which path served this thread's call."""
-    if device.type == "cuda":
-        _LAST_DISPATCH.info = dict(impl="cuda", variant=None,
-                                   reason="CUDA affine kernel")
+def _resample(vol: torch.Tensor, matrices: np.ndarray, interpolation: str,
+              mode: str, cval: float, out_shape=None,
+              out: torch.Tensor = None) -> torch.Tensor:
+    """Resample ``vol`` through host ``matrices`` ((4, 4) or (N, 4, 4)) in
+    one launch of the kernel the planner chooses for them, and note the
+    choice for :func:`last_dispatch`."""
+    out_shape = tuple(vol.shape) if out_shape is None else tuple(out_shape)
+    order = spline_order(interpolation)
+    plan = choose_plan(matrices, vol.shape, interpolation, mode, out_shape)
+    mats = _device_matrices(matrices, vol.device)
+    if plan is not None:
+        result = affine_slab(vol, mats, order, mode, cval, out_shape, out,
+                             plan=plan)
+        kernel = (f"slab kernel (affine_slab): box {plan.extents}, "
+                  f"{plan.smem_bytes} B of shared memory")
     else:
-        _LAST_DISPATCH.info = dict(impl="torch", variant=None,
-                                   reason="plain torch sampler (device='cpu')")
+        result = affine_resample(vol, mats, order, mode, cval, out_shape,
+                                 out)
+        extents = slab_extents(matrices, vol.shape, order, out_shape)
+        kernel = (f"walk kernel (affine_resample): the slab box {extents} "
+                  f"needs {4 * int(np.prod(extents))} B, over the "
+                  f"{SMEM_BUDGET} B budget")
+    if vol.device.type == "cuda":
+        _LAST_DISPATCH.info = dict(impl="cuda", variant=plan,
+                                   reason=f"CUDA {kernel}")
+    else:
+        _LAST_DISPATCH.info = dict(
+            impl="torch", variant=plan,
+            reason=f"plain torch sampler (device='cpu') in place of the "
+                   f"{kernel}")
+    return result
 
 
 def _check_output(output, device: str):
@@ -144,8 +185,8 @@ def affine(volume,
     """Apply a 4x4 pull-back matrix to a 3-D volume (numpy array or tensor).
 
     The chain is the prefilter (``filt_bspline*`` only), then one launch of
-    the affine kernel -- the one-shot program of the JAX package
-    (``pallas_walk.py:1874-1892``).  ``reshape=True`` samples onto the
+    the kernel the planner chooses -- the one-shot program of the JAX
+    package (``pallas_walk.py:1874-1892``).  ``reshape=True`` samples onto the
     enlarged grid that holds the whole transformed volume, through the
     pad-shifted matrix."""
     if volume.ndim != 3:
@@ -155,12 +196,8 @@ def affine(volume,
             f"Interpolation must be one of {AVAILABLE_INTERPOLATIONS}")
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    available = get_available_devices()
-    if device not in available:
-        raise ValueError(
-            f"Unknown device ({device}), must be one of {available}")
+    dev = _device(device)
     _check_output(output, device)
-    dev = resolve_device(device)
 
     transform_m = np.asarray(transform_m, dtype=np.float32)
     out_shape = tuple(int(d) for d in volume.shape)
@@ -180,10 +217,8 @@ def affine(volume,
         vol = _as_tensor(volume, dev).contiguous()
         if needs_prefilter(interpolation):
             vol = bspline_prefilter(vol)
-        result = affine_resample(vol, _device_matrices(transform_m, dev),
-                                 spline_order(interpolation), mode,
-                                 float(cval), out_shape)
-        _record(dev)
+        result = _resample(vol, transform_m, interpolation, mode,
+                           float(cval), out_shape)
         if isinstance(output, str):
             return result
         return _finish(result.cpu().numpy(), output)

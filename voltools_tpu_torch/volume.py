@@ -2,13 +2,16 @@
 
 The port's counterpart of ``voltools_tpu/volume.py``: upload once, prefilter
 once (for ``filt_bspline*``), then every transform ships only a 4x4 matrix
-to the device and launches the CUDA affine kernel on the resident tensor.
+to the device and launches a CUDA affine kernel on the resident tensor:
+the slab kernel where the planner finds its box fits, the walk kernel
+otherwise (:func:`voltools_tpu_torch.transforms._resample`).
 
 * ``affine(output=<tensor>)`` writes into a preallocated float32 tensor of
   the volume's shape on the volume's device, in place: the torch form of
   the JAX package's buffer donation (``pallas_walk.py:1989-2010``).
 * ``affine_batch`` applies N matrices in one launch, chunked so that the
-  device holds at most about 2 GB of output at a time.
+  device holds at most about 2 GB of output at a time; each chunk is
+  planned as one envelope.
 * ``reshape`` is unsupported, as in the reference (``volume.py:14-16``).
 * On ``device='cpu'`` the volume is a private float32 tensor and the
   kernel's plain torch version samples it.
@@ -21,16 +24,14 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .kernels.affine_resample import MAX_BATCH, affine_resample
+from .kernels.affine_resample import MAX_BATCH
 from .ops.interpolation import (AVAILABLE_INTERPOLATIONS, MODES,
-                                needs_prefilter, spline_order)
+                                needs_prefilter)
 from .ops.prefilter import BOUNDARIES, bspline_prefilter
 from .transforms import (_as_tensor, _as_triple, _check_output,
-                         _check_shape, _device_matrices, _finish, _record)
+                         _check_shape, _device, _finish, _resample)
 from .utils import (
     ProfileTimer,
-    get_available_devices,
-    resolve_device,
     rotation_matrix,
     scale_matrix,
     shear_matrix,
@@ -46,8 +47,8 @@ class StaticVolume:
     repeated transforms.  ``reshape`` is not available on this API.
 
     ``autotune`` is accepted for API parity and does nothing: the JAX
-    package tunes among TPU kernel plans, and the port has one kernel
-    configuration."""
+    package tunes among TPU kernel plans by measuring them, and the port's
+    planner chooses between its two kernels from the matrices alone."""
 
     # keep the device output stack under ~2 GB per launch
     _BATCH_BYTES_BUDGET = 2 << 30
@@ -79,14 +80,9 @@ class StaticVolume:
                 f"Interpolation must be one of {AVAILABLE_INTERPOLATIONS}")
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-        available = get_available_devices()
-        if device not in available:
-            raise ValueError(
-                f"Unknown device ({device}), must be one of {available}")
+        self._dev = _device(device)
         self.device = device
-        self._dev = resolve_device(device)
         self.interpolation = interpolation
-        self._order = spline_order(interpolation)
         self.mode = mode
         self.cval = float(cval)
         self.shape = tuple(int(s) for s in data.shape)
@@ -104,11 +100,8 @@ class StaticVolume:
         return sv
 
     def _resample(self, matrices: np.ndarray, out=None) -> torch.Tensor:
-        result = affine_resample(self.data,
-                                 _device_matrices(matrices, self._dev),
-                                 self._order, self.mode, self.cval, out=out)
-        _record(self._dev)
-        return result
+        return _resample(self.data, matrices, self.interpolation, self.mode,
+                         self.cval, out=out)
 
     # ------------------------------------------------------------------ core
 
