@@ -17,37 +17,47 @@ It imports torch, numpy, scipy and the port only (never JAX, never
 3. parity -- A against its plain torch version on the card: order {1, 3} x
    mode {constant, border} x cval {0, 1.5}, random 'sxyz' rotations about
    size/2 plus a translate, a scale and a shear, on 250^3, (40, 48, 56) and
-   shapes with an extent of 1; a batch of 16 and a write into a
-   preallocated tensor.  atol 5e-5 off knife edges;
+   shapes with an extent of 1, each on the contiguous and the pitched
+   volume (``torch.equal``); a batch of 16 and a write into a preallocated
+   tensor.  atol 5e-5 off knife edges;
 4. parity_slab -- B against its plain version (atol 5e-5 off knife edges)
    and against A (``torch.equal``: the two share their per-voxel
-   arithmetic), order x mode x cval as above, on the matrices of
+   arithmetic), order x mode x cval as above, on pitched volumes (widths
+   56, 250, 80 and 29: two of them not a multiple of 4), on the matrices of
    ``tests/test_pallas.py`` at (40, 48, 56), the 41-tilt series about each
-   axis at 250^3, the extent-1 shapes, a batch and an into-buffer write;
-   B's overflow counter stays 0;
+   axis and the random set of phase 3 at 250^3, the extent-1 shapes, a
+   batch and an into-buffer write; each launch plans by the box rule
+   (``slab_plan``), and B's overflow counter stays 0;
 5. main   -- the main path at 250^3 float32, through the public API:
    ``StaticVolume`` 'linear' and 'filt_bspline' on 'cuda', ``.affine`` over
    16 random rotations and ``.affine_batch`` of the same 16, and the
    one-shot ``affine(..., 'filt_bspline', device='cuda')``.  Both launch
    counters are set to 0 just before and read just after, and each must
-   equal what the planner (``choose_plan``) gives for the same matrices;
-   results are held against the plain version and scipy.ndimage;
+   equal what the planner (``choose_plan``: the box rule, then the speed
+   rule) gives for the same matrices; results are held against the plain
+   version and scipy.ndimage;
 6. tilt   -- the tilt-series path at 250^3 through the public API:
    ``TiltSeriesProjector`` 'linear' and 'filt_bspline', 41 tilts from -60
    to +60 degrees in 3 degree steps at position 1 of the 'rzxz' triple,
    then ``wbp_reconstruct`` and ``sirt_reconstruct`` (30 iterations) of a
    linear series at position 0, the geometry of
    ``examples/reconstruction.py``, with the counters set to 0 before and
-   read after (every launch is B's).  Projections are held against the
-   plain version (rotate, then sum) and one tilt against
+   read after, each equal to the planner's; each kernel must have run on
+   one of the two paths.  Projections are held against the plain version
+   (rotate, then sum) and one tilt against
    ``scipy.ndimage.affine_transform(...).sum(axis=0)``; WBP and SIRT
    against the same functions with the plain forward;
 7. times  -- CUDA-event times after warm-up of B and A on the same
    matrices (the tilt series and the 16 random rotations, single and
-   batched, linear and cubic), ``StaticVolume.affine`` per rotation, the
-   prefilters, the one-shot call, the projector, WBP and SIRT, and the
-   plain versions, beside each kernel's bound (the larger of its bytes over the
-   memory rate and its least arithmetic, for this run's matrices, over
+   batched, linear and cubic), of the kernels as the planner routes each
+   matrix, and the planner's choice and box voxels per output voxel for
+   each set (the ``planner_choice`` line: whether the routed time is within
+   5% of the faster of A alone and B wherever its box fits, reported and
+   not checked, as no time is); ``StaticVolume.affine`` per rotation, the
+   prefilters, the
+   one-shot calls, the pitched copy, the projector, WBP and SIRT, and the
+   plain versions, beside each kernel's bound (the larger of its bytes over
+   the memory rate and its least arithmetic, for this run's matrices, over
    the fp32 rate) and ``torch.nn.functional.grid_sample`` (timed only; the
    port never calls it).
 
@@ -249,7 +259,9 @@ def main():
     from voltools_tpu_torch.kernels import _build
     from voltools_tpu_torch.kernels import affine_resample as K
     from voltools_tpu_torch.kernels import affine_slab as S
-    from voltools_tpu_torch.kernels.planner import choose_plan
+    from voltools_tpu_torch.kernels import planner
+    from voltools_tpu_torch.kernels.layout import pitched
+    from voltools_tpu_torch.kernels.planner import choose_plan, slab_plan
     from voltools_tpu_torch.models import (TiltSeriesProjector,
                                            sirt_reconstruct,
                                            wbp_reconstruct)
@@ -266,7 +278,12 @@ def main():
     interp_of = {1: "linear", 3: "bspline"}
 
     def plan_of(ms, shape, order, mode="constant"):
-        return choose_plan(ms, shape, interp_of[order], mode)
+        """The box rule's plan: B can take the launch."""
+        return slab_plan(ms, shape, interp_of[order], mode)
+
+    def routed(ms, shape, order):
+        """The planner's plan: B takes the launch and is the faster."""
+        return choose_plan(ms, shape, interp_of[order])
 
     # ---------------------------------------------------------- 1. card
     smi = card_line()
@@ -303,6 +320,7 @@ def main():
     shapes = [(SIZE,) * 3, PALLAS_SHAPE, (1, 64, 80), (37, 1, 29)]
     for shape in shapes:
         vol = torch.from_numpy(rng.random(shape).astype(np.float32)).to(dev)
+        pvol = pitched(vol, copy=True)
         ms = matrix_set(np, transform_matrix, shape, seed=shape[0])
         ms_dev = torch.from_numpy(ms).to(dev)
         for order in (1, 3):
@@ -311,6 +329,9 @@ def main():
                     errs = []
                     for i in range(len(ms)):
                         got = walk(vol, ms_dev[i], order, mode, cval)
+                        assert torch.equal(got, walk(pvol, ms_dev[i], order,
+                                                     mode, cval)), \
+                            (shape, order, mode, cval, i, "pitched A")
                         want = affine_sample(vol, ms_dev[i], interp_of[order],
                                              mode, cval, prefiltered=True)
                         off, every = errors(torch, got, want, ms[i])
@@ -321,6 +342,7 @@ def main():
                     torch.cuda.synchronize()
                     emit("parity", kernel=K.NAME, shape=list(shape),
                          order=order, mode=mode, cval=cval,
+                         pitch=pvol.stride(1), equal_on_pitched=True,
                          max_abs_err=errs, atol=ATOL)
 
     vol = torch.from_numpy(rng.random((SIZE,) * 3).astype(np.float32)).to(dev)
@@ -344,7 +366,7 @@ def main():
         torch.cuda.synchronize()
         emit("parity_batch", kernel=K.NAME, order=order, n=len(ms),
              max_abs_err=max(errs), into_buffer="ok", atol=ATOL)
-    del vol, batch, buf
+    del vol, pvol, batch, buf
 
     # ------------------------------ 4. B vs its plain version and vs A
     slab_worst = {1: 0.0, 3: 0.0}
@@ -355,13 +377,17 @@ def main():
                           PALLAS_CENTER))]
     sets += [(f"tilt_axis_{ax}", big,
               tilt_series(np, transform_matrix, big, ax)) for ax in range(3)]
+    sets.append(("random_set", big, matrix_set(np, transform_matrix, big,
+                                               seed=SIZE)))
     for shape in ((1, 64, 80), (37, 1, 29)):
         center = tuple((s - 1) / 2 for s in shape)
         sets.append((f"extent_1_{shape}", shape,
                      pallas_cases(np, transform_matrix, translation_matrix,
                                   center)))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, shape, ms in sets:
-        vol = torch.from_numpy(rng.random(shape).astype(np.float32)).to(dev)
+        vol = pitched(torch.from_numpy(rng.random(shape).astype(
+            np.float32)).to(dev))
         ms_dev = torch.from_numpy(ms).to(dev)
         for order in (1, 3):
             for mode in ("constant", "border"):
@@ -394,15 +420,19 @@ def main():
                         assert off <= ATOL, (name, order, mode, cval, i, off)
                     torch.cuda.synchronize()
                     emit("parity_slab", set=name, shape=list(shape),
+                         pitch=vol.stride(1),
                          n=len(ms), order=order, mode=mode, cval=cval,
                          launches=len(plans),
                          extents=[list(p.extents) for p in plans],
-                         blocks_per_sm=blocks,
+                         box_per_voxel=[p.box_per_voxel for p in plans],
+                         blocks_per_sm=blocks, grid=blocks * sms,
+                         stages=planner.STAGES,
                          equal_to_walk=same, max_abs_err=max(errs),
                          atol=ATOL)
         del vol, got
     # a single matrix, and a write into a preallocated tensor
-    vol = torch.from_numpy(rng.random(big).astype(np.float32)).to(dev)
+    vol = pitched(torch.from_numpy(rng.random(big).astype(np.float32)).to(
+        dev))
     ms = tilt_series(np, transform_matrix, big, TILT_AXIS)
     ms_dev = torch.from_numpy(ms).to(dev)
     for order in (1, 3):
@@ -436,7 +466,7 @@ def main():
     orders = [1] * (N_ROT + 1) + [3] * (N_ROT + 1) + [1, 3, 3]
     expected = {S.NAME: 0, K.NAME: 0}
     for m, order in zip(calls, orders):
-        expected[S.NAME if plan_of(m, big, order) is not None
+        expected[S.NAME if routed(m, big, order) is not None
                  else K.NAME] += 1
 
     torch.cuda.synchronize()
@@ -457,8 +487,9 @@ def main():
     seconds = time.perf_counter() - t0
     main_launches = {S.NAME: slab.launches, K.NAME: walk.launches}
     assert main_launches == expected, (main_launches, expected)
-    assert all(n > 0 for n in main_launches.values()), main_launches
+    assert sum(main_launches.values()) == len(calls), main_launches
     assert vt.last_dispatch()["impl"] == "cuda"
+    assert sv_lin.data.stride(1) % 4 == 0 and sv_cub.data.stride(1) % 4 == 0
 
     main_err = {1: 0.0, 3: 0.0}
     for order, sv, outs, batch in ((1, sv_lin, lin, lin_batch),
@@ -514,7 +545,7 @@ def main():
     for ms, order, times in ((tms, 1, 1), (tms, 3, 1),
                              (rms, 1, 2 + SIRT_ITERATIONS)):
         for c in chunks_of(ms):
-            expected_tilt[S.NAME if plan_of(c, big, order) is not None
+            expected_tilt[S.NAME if routed(c, big, order) is not None
                           else K.NAME] += times
 
     torch.cuda.synchronize()
@@ -539,8 +570,9 @@ def main():
     seconds = time.perf_counter() - t0
     tilt_launches = {S.NAME: slab.launches, K.NAME: walk.launches}
     assert tilt_launches == expected_tilt, (tilt_launches, expected_tilt)
-    assert tilt_launches[S.NAME] > 0 and tilt_launches[K.NAME] == 0, \
-        ("every tilt launch goes to the slab kernel", tilt_launches)
+    # every kernel runs on one of the two paths at least
+    assert all(main_launches[k] + tilt_launches[k] > 0
+               for k in main_launches), (main_launches, tilt_launches)
 
     proj_err = {}
     plain_projs = {}
@@ -609,6 +641,7 @@ def main():
     out = torch.empty(big, device=dev)
     stack = torch.empty((len(tms),) + big, device=dev)
     t = {}
+    choices = {}
     sets = {"tilt": tms, "random": rots}
     for set_name, ms in sets.items():
         ms_dev = torch.from_numpy(ms).to(dev)
@@ -618,6 +651,7 @@ def main():
         for order, name in ((1, "linear"), (3, "cubic")):
             plans = [plan_of(m, big, order) for m in ms]
             fit = [i for i, p in enumerate(plans) if p is not None]
+            route = [routed(m, big, order) for m in ms]
             state = {"i": 0}
 
             def one_slab():
@@ -635,8 +669,31 @@ def main():
                      out=out)
                 state["i"] += 1
 
+            def as_routed():
+                # each matrix on the kernel the planner routes it to
+                i = state["i"] % len(ms)
+                if route[i] is not None:
+                    slab(coef[order], ms_dev[i], order, out=out,
+                         plan=route[i])
+                else:
+                    walk(coef[order], ms_dev[i], order, out=out)
+                state["i"] += 1
+
+            def box_rule_only():
+                # the box rule alone: B wherever its box fits
+                i = state["i"] % len(ms)
+                if plans[i] is not None:
+                    slab(coef[order], ms_dev[i], order, out=out,
+                         plan=plans[i])
+                else:
+                    walk(coef[order], ms_dev[i], order, out=out)
+                state["i"] += 1
+
             key = f"{set_name}_{name}"
             t[f"{key}_on_slab"] = len(fit)
+            t[f"{key}_routed_to_slab"] = sum(p is not None for p in route)
+            t[f"{key}_box_per_voxel"] = [p.box_per_voxel for p in plans
+                                         if p is not None]
             # A on every matrix of the set, beside its bound
             t[f"{key}_walk_ms"] = time_ms(torch, every_walk,
                                           reps=2 * len(ms))
@@ -646,6 +703,21 @@ def main():
             t[f"{key}_slab_ms"] = time_ms(torch, one_slab, reps=2 * len(fit))
             t[f"{key}_walk_same_ms"] = time_ms(torch, one_walk,
                                                reps=2 * len(fit))
+            t[f"{key}_routed_ms"] = time_ms(torch, as_routed,
+                                            reps=2 * len(ms))
+            t[f"{key}_box_rule_only_ms"] = time_ms(torch, box_rule_only,
+                                                   reps=2 * len(ms))
+            fastest = min(t[f"{key}_walk_ms"], t[f"{key}_box_rule_only_ms"])
+            n_slab = t[f"{key}_routed_to_slab"]
+            choices[key] = {
+                "planner": ("slab" if n_slab == len(ms) else
+                            "walk" if n_slab == 0 else
+                            f"slab {n_slab} of {len(ms)}"),
+                "walk_ms": t[f"{key}_walk_ms"],
+                "slab_ms": t[f"{key}_slab_ms"],
+                "routed_ms": t[f"{key}_routed_ms"],
+                "planner_within_5pct_of_faster":
+                    t[f"{key}_routed_ms"] <= 1.05 * fastest}
             fit_in = [inside[i] for i in fit]
             t[f"{key}_bound_ms"], t[f"{key}_bound_by"] = bound_ms(
                 order, big, big, fit_in, per_launch=1)
@@ -665,6 +737,9 @@ def main():
             if envelope is not None:
                 t[f"{key}_batch_blocks_per_sm"] = S.blocks_per_sm(envelope,
                                                                   dev)
+                t[f"{key}_batch_box_per_voxel"] = envelope.box_per_voxel
+            t[f"{key}_blocks_per_sm"] = sorted({
+                S.blocks_per_sm(plans[i], dev) for i in fit})
             t[f"{key}_plain_ms"] = time_ms(
                 torch, lambda: affine_sample(coef[order], ms_dev[fit[0]],
                                              interp_of[order],
@@ -683,8 +758,16 @@ def main():
                 align_corners=True), reps=20)
         del coords, grid
     del stack
+    emit("planner_choice", rule={
+        # an open end of the window reads null
+        "slab_window": {str(k): [x if x != float("inf") else None
+                                 for x in v]
+                        for k, v in planner.SLAB_WINDOW.items()},
+        "smem_budget": planner.SMEM_BUDGET, "stages": planner.STAGES,
+        "brick": {str(k): list(v) for k, v in planner.BRICK.items()}},
+         sets=choices)
     # the main path's end-to-end metric: StaticVolume.affine per rotation,
-    # through the planner (B where the box fits, else A)
+    # through the planner
     for order, name, sv in ((1, "linear", sv_lin), (3, "cubic", sv_cub)):
         state = {"i": 0}
 
@@ -710,6 +793,25 @@ def main():
     t["sirt_ms_per_iteration"] = (sirt_4 - sirt_1) / 3
     t["sirt_setup_ms"] = sirt_1 - t["sirt_ms_per_iteration"]
     vol_dev = torch.from_numpy(vol_np).to(dev)
+    # what the pitched layout costs: the copy the one-shot call makes of a
+    # 250-wide volume, and A on the pitched against the contiguous volume
+    t["pitched_copy_ms"] = time_ms(
+        torch, lambda: pitched(vol_dev, copy=True), reps=5)
+    rots_dev = torch.from_numpy(rots).to(dev)
+    state = {"i": 0}
+
+    def walk_contiguous():
+        walk(vol_dev, rots_dev[state["i"] % N_ROT], 1, out=out)
+        state["i"] += 1
+
+    def walk_pitched():
+        walk(sv_lin.data, rots_dev[state["i"] % N_ROT], 1, out=out)
+        state["i"] += 1
+
+    t["random_linear_walk_contiguous_ms"] = time_ms(torch, walk_contiguous,
+                                                    reps=2 * N_ROT)
+    t["random_linear_walk_pitched_ms"] = time_ms(torch, walk_pitched,
+                                                 reps=2 * N_ROT)
     t["prefilter_mirror_ms"] = time_ms(
         torch, lambda: bspline_prefilter(vol_dev), reps=5)
     t["prefilter_clamp_ms"] = time_ms(
@@ -717,6 +819,9 @@ def main():
     t["one_shot_filt_bspline_ms"] = time_ms(
         torch, lambda: vt.affine(vol_dev, rots[0], "filt_bspline",
                                  device="cuda", output="device"), reps=5)
+    t["one_shot_linear_ms"] = time_ms(
+        torch, lambda: vt.affine(vol_dev, rots[0], "linear", device="cuda",
+                                 output="device"), reps=5)
     emit("times", shape=list(big), method="CUDA events, back-to-back "
          "launches after warm-up; the 62.5 MB volume exceeds the 50 MB L2",
          **t)

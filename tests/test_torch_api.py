@@ -297,6 +297,7 @@ def test_port_imports_no_jax():
         "import voltools_tpu_torch, voltools_tpu_torch.convert\n"
         "import voltools_tpu_torch.kernels.affine_resample\n"
         "import voltools_tpu_torch.kernels.affine_slab\n"
+        "import voltools_tpu_torch.kernels.layout\n"
         "import voltools_tpu_torch.kernels.planner\n"
         "import voltools_tpu_torch.models\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -341,3 +342,41 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_profile_timer_synchronizes_the_calls_device(vol, monkeypatch,
+                                                     capsys):
+    """``profile=True`` waits for the call's own device: with
+    ``device='cuda:N'`` the kernels run on card N, which need not be the
+    current one, so the bracket synchronises card N (here a recorder stands
+    in for ``torch.cuda.synchronize``); a CPU call synchronises nothing."""
+    from voltools_tpu_torch import transforms, volume
+    from voltools_tpu_torch.utils import ProfileTimer
+    synced = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: synced.append(device))
+    with ProfileTimer(torch.device("cuda", 1)):
+        pass
+    assert synced == [torch.device("cuda", 1)] * 2
+    synced.clear()
+    with ProfileTimer("cpu"):
+        pass
+    assert synced == []
+    assert capsys.readouterr().out.count("transform finished in") == 2
+    # the API hands the timer the device of the call
+    given = []
+
+    def recording(device=None):
+        given.append(device)
+        return ProfileTimer(device)
+
+    monkeypatch.setattr(transforms, "ProfileTimer", recording)
+    monkeypatch.setattr(volume, "ProfileTimer", recording)
+    m = rotations(1, seed=12)[0]
+    tvt.affine(vol, m, device="cpu", profile=True)
+    sv = tvt.StaticVolume(vol, "linear", device="cpu")
+    sv.affine(m, profile=True)
+    sv.affine_batch(m[None], profile=True)
+    assert given == [torch.device("cpu")] * 3 and synced == []
+    assert capsys.readouterr().out.count("transform finished in") == 3

@@ -18,11 +18,13 @@ import voltools_tpu_torch as vt
 from voltools_tpu_torch.kernels.affine_resample import affine_resample
 from voltools_tpu_torch.kernels.affine_slab import (affine_slab,
                                                     blocks_per_sm, overflows)
-from voltools_tpu_torch.kernels.planner import SlabPlan, choose_plan
+from voltools_tpu_torch.kernels.layout import pitched, tma_ready
+from voltools_tpu_torch.kernels.planner import (BRICK, SMEM_BUDGET, SlabPlan,
+                                                slab_extents, slab_plan)
 from voltools_tpu_torch.models import (TiltSeriesProjector, sirt_reconstruct,
                                        wbp_reconstruct)
 from voltools_tpu_torch.ops.sampling import affine_sample
-from voltools_tpu_torch.utils import transform_matrix
+from voltools_tpu_torch.utils import transform_matrix, translation_matrix
 
 pytestmark = pytest.mark.cuda
 
@@ -134,31 +136,40 @@ def test_api_on_cuda_matches_cpu(dev, interpolation):
 @pytest.mark.parametrize("order", [1, 3])
 def test_slab_kernel_equals_walk_kernel(dev, shape, mode, order):
     """The two kernels share their per-voxel arithmetic: bit-identical
-    results, and the plain version's to within ATOL."""
-    vol = torch.from_numpy(np.random.default_rng(1).random(shape).astype(
-        np.float32)).to(dev)
+    results, and the plain version's to within ATOL.  A matrix whose box
+    is over the slab kernel's budget (boxes are not capped at a small
+    volume) is the walk kernel's alone."""
+    vol = pitched(torch.from_numpy(np.random.default_rng(1).random(
+        shape).astype(np.float32)).to(dev))
     ms = matrices(shape, seed=shape[0])
     ms_dev = ms.to(dev)
     interp = "linear" if order == 1 else "bspline"
     before = overflows(dev)
+    compared = 0
     for cval in (0.0, 1.5):
         for i in range(len(ms)):
-            plan = choose_plan(ms[i].numpy(), shape, interp, mode)
-            assert plan is not None and blocks_per_sm(plan, dev) >= 1
+            plan = slab_plan(ms[i].numpy(), shape, interp, mode)
+            if plan is None:
+                assert 4 * np.prod(slab_extents(ms[i].numpy(), shape,
+                                                order)) > SMEM_BUDGET
+                continue
+            compared += 1
+            assert blocks_per_sm(plan, dev) >= 1
             got = affine_slab(vol, ms_dev[i], order, mode, cval, plan=plan)
             assert torch.equal(got, affine_resample(vol, ms_dev[i], order,
                                                     mode, cval))
             want = affine_sample(vol, ms_dev[i], interp, mode, cval,
                                  prefiltered=True)
             torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+    assert compared >= 4
     assert overflows(dev) == before
 
 
 def test_slab_batch_counter_and_out_buffer(dev):
     shape = (12, 13, 14)
-    vol = torch.rand(shape, device=dev)
+    vol = pitched(torch.rand(shape, device=dev))
     ms = matrices(shape, seed=1)
-    plan = choose_plan(ms.numpy(), shape, "bspline")
+    plan = slab_plan(ms.numpy(), shape, "bspline")
     ms = ms.to(dev)
     before = affine_slab.launches
     out = torch.empty(shape, device=dev)
@@ -171,12 +182,12 @@ def test_slab_batch_counter_and_out_buffer(dev):
 
 
 def test_slab_overflow_is_counted_and_still_right(dev):
-    """A plan whose box is too small for the matrix: the kernel clips the
-    box, reads the taps outside it from global memory, and counts."""
+    """A plan whose box is too small for the matrix: the kernel reads the
+    taps outside each box from global memory, and counts."""
     shape = (20, 21, 22)
-    vol = torch.rand(shape, device=dev)
+    vol = pitched(torch.rand(shape, device=dev))
     m = matrices(shape, seed=2)[0].to(dev)
-    small = SlabPlan(1, "constant", shape, shape, (2, 2, 2))
+    small = SlabPlan(1, "constant", shape, shape, (2, 2, 4))
     before = overflows(dev)
     got = affine_slab(vol, m, 1, plan=small)
     assert overflows(dev) > before
@@ -185,7 +196,7 @@ def test_slab_overflow_is_counted_and_still_right(dev):
 
 def test_slab_launch_leaves_current_device(dev):
     last = torch.device("cuda", torch.cuda.device_count() - 1)
-    vol = torch.rand((9, 10, 11), device=last)
+    vol = pitched(torch.rand((9, 10, 11), device=last))
     m = matrices((9, 10, 11), seed=5)[0].to(last)
     torch.cuda.set_device(0)
     got = affine_slab(vol, m, 3)
@@ -200,9 +211,11 @@ def test_projector_and_reconstruction_on_cuda_match_cpu(dev, interpolation):
     angles = np.arange(-60.0, 61.0, 20.0)
     gpu = TiltSeriesProjector(vol, interpolation, device="cuda")
     cpu = TiltSeriesProjector(vol, interpolation, device="cpu")
-    before = affine_slab.launches
+    assert tma_ready(gpu.data)
+    before = affine_slab.launches + affine_resample.launches
     p_gpu = gpu.project(angles, tilt_axis=0, output="device")
-    assert p_gpu.is_cuda and affine_slab.launches == before + 1
+    assert p_gpu.is_cuda
+    assert affine_slab.launches + affine_resample.launches == before + 1
     p_cpu = cpu.project(angles, tilt_axis=0)
     # each projection sums 20 voxels that agree to ATOL
     np.testing.assert_allclose(p_gpu.cpu().numpy(), p_cpu, atol=20 * ATOL)
@@ -215,3 +228,120 @@ def test_projector_and_reconstruction_on_cuda_match_cpu(dev, interpolation):
                          device="cuda"),
         sirt_reconstruct(p_cpu, ms, vol.shape, iterations=3, nonneg=True,
                          device="cpu"), atol=1e-4)
+
+
+def _slab_equals_walk(vol, ms, order, mode="constant", cval=0.0, plan=None):
+    """B on ``vol`` (pitched here) equals A bit for bit, with no overflow;
+    returns B's result."""
+    interp = "linear" if order == 1 else "bspline"
+    shape = tuple(vol.shape)
+    plan = plan or slab_plan(ms.cpu().numpy(), shape, interp, mode)
+    assert plan is not None
+    before = overflows(vol.device)
+    got = affine_slab(pitched(vol), ms, order, mode, cval, plan=plan)
+    assert torch.equal(got, affine_resample(vol, ms, order, mode, cval))
+    assert overflows(vol.device) == before
+    return got
+
+
+@pytest.mark.parametrize("order", [1, 3])
+def test_slab_walks_more_items_than_its_grid(dev, order):
+    """64 matrices on (40, 48, 56): 3840 (trilinear) or 7680 (cubic)
+    items, several passes of the persistent grid over them."""
+    shape = (40, 48, 56)
+    center = tuple((s - 1) / 2 for s in shape)
+    ms = torch.from_numpy(np.stack([
+        transform_matrix(rotation=(0.0, float(a), 0.0), rotation_order="rzxz",
+                         center=center)
+        for a in np.linspace(-60, 60, 64)]).astype(np.float32)).to(dev)
+    vol = torch.rand(shape, device=dev)
+    plan = slab_plan(ms.cpu().numpy(), shape,
+                     "linear" if order == 1 else "bspline")
+    bricks = int(np.prod([-(-n // b) for n, b in zip(shape, BRICK[order])]))
+    assert 64 * bricks > torch.cuda.get_device_properties(
+        dev).multi_processor_count * blocks_per_sm(plan, dev)
+    _slab_equals_walk(vol, ms, order, plan=plan)
+
+
+def test_slab_takes_more_matrices_than_a_grid_dimension(dev):
+    """70000 matrices in one launch, past the 65535 of a grid's y; the walk
+    kernel takes them in two launches."""
+    shape = (4, 8, 32)
+    rng = np.random.default_rng(8)
+    ms = torch.from_numpy(np.stack([
+        translation_matrix(tuple(rng.uniform(-2.0, 2.0, 3)))
+        for _ in range(70000)]).astype(np.float32)).to(dev)
+    vol = pitched(torch.rand(shape, device=dev))
+    plan = slab_plan(ms.cpu().numpy(), shape, "linear")
+    before = overflows(dev)
+    got = affine_slab(vol, ms, 1, plan=plan)
+    want = torch.cat([affine_resample(vol, ms[:65535], 1),
+                      affine_resample(vol, ms[65535:], 1)])
+    assert torch.equal(got, want)
+    assert overflows(dev) == before
+
+
+@pytest.mark.parametrize("shape", [(6, 10, 250), (9, 7, 56), (20, 30, 1)])
+@pytest.mark.parametrize("order", [1, 3])
+def test_slab_reads_pitched_and_unpitched_widths(dev, shape, order):
+    """One pitched buffer serves both kernels at widths of 4k + 2, 4k and
+    1; the walk kernel gives the same on the pitched and the contiguous
+    volume, and the slab kernel refuses a contiguous width it cannot read
+    with TMA."""
+    vol = torch.from_numpy(np.random.default_rng(2).random(shape).astype(
+        np.float32)).to(dev)
+    center = tuple((s - 1) / 2 for s in shape)
+    ms = torch.from_numpy(np.stack([
+        transform_matrix(rotation=(0.0, 35.0, 0.0), rotation_order="rzxz",
+                         center=center),
+        transform_matrix(shear=(0.11, -0.07, 0.19), center=center),
+        translation_matrix((0.3, -1.7, 2.2))]).astype(np.float32)).to(dev)
+    p = pitched(vol)
+    assert tma_ready(p) and torch.equal(p, vol)
+    assert (p.stride(1) == shape[2]) == (shape[2] % 4 == 0)
+    for mode in ("constant", "border"):
+        for i in range(len(ms)):
+            got = _slab_equals_walk(vol, ms[i], order, mode, 1.5)
+            assert torch.equal(affine_resample(p, ms[i], order, mode, 1.5),
+                               got)
+    if shape[2] % 4:
+        with pytest.raises(ValueError, match="TMA"):
+            affine_slab(vol, ms[0], order)
+
+
+@pytest.mark.parametrize("order", [1, 3])
+@pytest.mark.parametrize("mode", ["constant", "border"])
+def test_slab_boxes_past_both_ends_of_the_volume(dev, order, mode):
+    """A source 2.5 voxels below the output, and a scale of 1.2 about the
+    centre: the first bricks' boxes start below 0 and the last ones end
+    past the volume; TMA fills the outside with zeros, which no tap
+    reads."""
+    shape = (13, 21, 38)
+    center = tuple((s - 1) / 2 for s in shape)
+    ms = np.stack([translation_matrix((2.5, 2.5, 2.5)),
+                   transform_matrix(scale=(1.2, 1.2, 1.2), center=center)])
+    interp = "linear" if order == 1 else "bspline"
+    first_tap = 0 if order == 1 else -1
+    n = np.array(shape)
+    brick = np.array(BRICK[order])
+    last = (n - 1) // brick * brick
+    for m in ms:
+        extents = np.array(slab_plan(m, shape, interp, mode).extents)
+        # the boxes as the kernel places them: from floor(min corner) +
+        # first tap - 1, the plan's extents long
+        for lo, hi in ((np.zeros(3), np.minimum(brick, n) - 1),
+                       (last, n - 1)):
+            corners = np.array([[z, y, x, 1.0] for z in (lo[0], hi[0])
+                                for y in (lo[1], hi[1])
+                                for x in (lo[2], hi[2])]).T
+            start = np.floor((m.astype(np.float32) @ corners)[:3].min(
+                axis=1)) + first_tap - 1
+            if lo.any():
+                assert (start + extents - 1 > n - 1).all()
+            else:
+                assert (start < 0).all()
+    vol = torch.rand(shape, device=dev)
+    ms = torch.from_numpy(ms.astype(np.float32)).to(dev)
+    for i in range(len(ms)):
+        _slab_equals_walk(vol, ms[i], order, mode, 0.5)
+    _slab_equals_walk(vol, ms, order, mode, 0.5)

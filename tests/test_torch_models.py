@@ -29,7 +29,8 @@ import voltools_tpu_torch as tvt
 import voltools_tpu_torch.models as tm
 from voltools_tpu.models.reconstruction import _make_adjoint as jax_adjoint
 from voltools_tpu_torch.convert import projector_from_state
-from voltools_tpu_torch.kernels.planner import SlabPlan
+from voltools_tpu_torch.kernels.planner import (SlabPlan, choose_plan,
+                                                slab_plan)
 from voltools_tpu_torch.models import reconstruction
 from voltools_tpu_torch.models.reconstruction import _make_adjoint
 
@@ -75,8 +76,12 @@ def test_projector_matches_jax(vol, interpolation, projection_axis,
     assert isinstance(got, np.ndarray) and got.dtype == np.float32
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=PROJ_ATOL, rtol=0)
-    # the single-axis sweep is planned onto the slab kernel
-    assert isinstance(tvt.last_dispatch()["variant"], SlabPlan)
+    # the single-axis sweep is planned as one envelope: the box rule admits
+    # it, and the planner's speed rule picks the kernel
+    interp = "linear" if interpolation == "linear" else "bspline"
+    assert isinstance(slab_plan(ms, SHAPE, interp), SlabPlan)
+    assert tvt.last_dispatch()["variant"] == choose_plan(ms, SHAPE, interp)
+    assert tvt.last_dispatch()["rule"] == "speed"
 
 
 def test_projector_plans_from_the_matrices_it_is_given(vol, monkeypatch):

@@ -24,6 +24,7 @@ import sys
 
 import numpy as np
 
+import voltools_tpu as jvt
 import voltools_tpu_torch as tvt
 from voltools_tpu.kernels.pallas_affine import (_tree_runner,
                                                 affine_sample_pallas_variant,
@@ -32,8 +33,11 @@ from voltools_tpu_torch.kernels import _build
 from voltools_tpu_torch.kernels import affine_slab as slab_module
 from voltools_tpu_torch.kernels.affine_resample import affine_resample
 from voltools_tpu_torch.kernels.affine_slab import affine_slab, overflows
+from voltools_tpu_torch.kernels.layout import (padded_width, pitched,
+                                               pitched_empty, row_pitch,
+                                               tma_ready)
 from voltools_tpu_torch.kernels.planner import (SlabPlan, choose_plan,
-                                                slab_extents)
+                                                slab_extents, slab_plan)
 from voltools_tpu_torch.ops.sampling import affine_sample
 from voltools_tpu_torch.utils import transform_matrix, translation_matrix
 
@@ -100,7 +104,7 @@ def test_plain_version_matches_tpu_select_tree_kernel(volume, case, mode):
     assert v is not None
     want = np.asarray(affine_sample_pallas_variant(volume, m, v, 0.0,
                                                    interpret=True))
-    plan = choose_plan(m, SHAPE, "linear", mode)
+    plan = slab_plan(m, SHAPE, "linear", mode)
     assert plan is not None
     before = affine_slab.launches
     got = affine_slab(torch.from_numpy(volume),
@@ -117,7 +121,7 @@ def test_plain_version_matches_tpu_batched_runner(volume):
     v = choose_variant(ms, SHAPE, "linear", "constant")
     assert v is not None
     want = np.asarray(_tree_runner(v, 0.0, 3, True)(volume, ms))
-    plan = choose_plan(ms, SHAPE, "linear")
+    plan = slab_plan(ms, SHAPE, "linear")
     got = affine_slab(torch.from_numpy(volume), torch.from_numpy(ms), 1,
                       plan=plan).numpy()
     assert got.shape == (3,) + SHAPE
@@ -147,7 +151,7 @@ def test_cpu_tensors_run_the_plain_version(order, interpolation, mode):
 def test_plan_checks():
     vol = torch.rand((12, 13, 14))
     ms = torch.from_numpy(tilts())
-    plan = choose_plan(ms.numpy(), (12, 13, 14), "linear")
+    plan = slab_plan(ms.numpy(), (12, 13, 14), "linear")
     for bad in (SlabPlan(3, "constant", plan.vol_shape, plan.out_shape,
                          plan.extents),
                 SlabPlan(1, "border", plan.vol_shape, plan.out_shape,
@@ -163,7 +167,7 @@ def test_plan_checks():
     # no plan given: one is made here, and a box that does not fit raises
     big = torch.rand((60, 60, 60))
     m = torch.from_numpy(transform_matrix(
-        rotation=(45, 45, 45), rotation_order="rzxz",
+        rotation=(45, 45, 45), rotation_order="rzxz", scale=(1.2,) * 3,
         center=(29.5,) * 3).astype(np.float32))
     assert affine_slab(vol, ms, 1).shape == (3, 12, 13, 14)
     with pytest.raises(ValueError, match="cannot take"):
@@ -237,3 +241,72 @@ def test_api_dispatches_through_the_planner():
     sv.affine_batch(np.stack([tilt, rot]).astype(np.float32))
     assert tvt.last_dispatch()["variant"] == choose_plan(
         np.stack([tilt, rot]), vol.shape, "linear")
+
+
+def _pitched_cases(shape):
+    center = tuple((s - 1) / 2 for s in shape)
+    return [transform_matrix(rotation=(0, 25, 0), rotation_order="rzxz",
+                             center=center),
+            transform_matrix(shear=(0.1, -0.05, 0.2), center=center),
+            transform_matrix(rotation=(10, 5, -3), rotation_order="rzxz",
+                             center=center)]
+
+
+@pytest.mark.parametrize("shape", [(10, 12, 250), (9, 11, 29), (8, 10, 32)])
+@pytest.mark.parametrize("interpolation", ["linear", "filt_bspline"])
+def test_pitched_resident_volume_matches_unpitched_and_jax(shape,
+                                                           interpolation):
+    """A StaticVolume keeps its volume pitched (rows a multiple of 4 floats
+    apart) at widths of 4k + 2, 4k + 1 and 4k; the plain version reads the
+    view and gives what it gives on the same voxels unpitched, bit for bit,
+    and the JAX package's StaticVolume on the CPU to atol 5e-5 off knife
+    edges."""
+    vol = np.random.default_rng(shape[2]).random(shape).astype(np.float32)
+    sv = tvt.StaticVolume(vol, interpolation, device="cpu")
+    assert sv.data.shape == shape and tma_ready(sv.data)
+    assert sv.data.stride(1) == padded_width(shape[2])
+    assert sv.data.is_contiguous() == (shape[2] % 4 == 0)
+    flat = sv.data.contiguous()
+    jsv = jvt.StaticVolume(vol, interpolation, device="cpu")
+    plain = "linear" if interpolation == "linear" else "bspline"
+    for m in _pitched_cases(shape):
+        got = sv.affine(m)
+        want = affine_sample(flat, torch.from_numpy(m.astype(np.float32)),
+                             plain, prefiltered=True).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert_close_off_edges(got, np.asarray(jsv.affine(m)), m)
+
+
+@pytest.mark.parametrize("shape", [(10, 12, 250), (9, 11, 29)])
+def test_pitched_volume_matches_tpu_select_tree_kernel(shape):
+    """The slab kernel's plain version on a pitched volume against the TPU
+    select-tree kernel in interpret mode, as above."""
+    vol = np.random.default_rng(7).random(shape).astype(np.float32)
+    pvol = pitched(torch.from_numpy(vol))
+    assert not pvol.is_contiguous()
+    m = _pitched_cases(shape)[0]
+    v = choose_variant(m, shape, "linear", "constant")
+    want = np.asarray(affine_sample_pallas_variant(vol, m, v, 0.0,
+                                                   interpret=True))
+    got = affine_slab(pvol, torch.from_numpy(m.astype(np.float32)), 1,
+                      plan=slab_plan(m, shape, "linear")).numpy()
+    assert_close_off_edges(got, want, m)
+
+
+def test_pitched_layout_helpers():
+    vol = torch.arange(3 * 4 * 5, dtype=torch.float32).reshape(3, 4, 5)
+    p = pitched(vol)
+    assert p.shape == vol.shape and p.stride() == (32, 8, 1)
+    assert torch.equal(p, vol) and row_pitch(p) == 8 and tma_ready(p)
+    # the padding is zero and never part of the view
+    assert torch.equal(p.as_strided((3, 4, 8), (32, 8, 1))[..., 5:],
+                       torch.zeros(3, 4, 3))
+    # an aligned volume is its own pitched form, unless a copy is asked for
+    q = pitched_empty((2, 3, 8)).fill_(1.0)
+    assert q.is_contiguous() and pitched(q) is q
+    assert pitched(q, copy=True).data_ptr() != q.data_ptr()
+    assert row_pitch(vol) == 5 and not tma_ready(vol)
+    with pytest.raises(ValueError, match="row-pitched"):
+        row_pitch(vol.transpose(0, 2))
+    assert not tma_ready(vol.transpose(0, 2))
+    assert tma_ready(pitched(vol.transpose(0, 2)))

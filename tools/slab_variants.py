@@ -6,27 +6,33 @@ copies of the source (in a temporary directory; the repository is not
 touched), and times each against the walk kernel on the same 250^3
 matrices, with CUDA events, in one process:
 
-* ``as_is``          -- the kernel as committed;
-* ``plain_loads``    -- the box staged with one ``__ldg`` and store per
-  element instead of ``cp.async``;
-* ``no_carveout``    -- without the request for the largest shared-memory
-  carveout;
-* ``no_load``        -- the box is not staged (taps read stale shared
-  memory): the compute alone;
-* ``no_compute``     -- the box is staged, then each voxel stores one value
-  of it: the staging alone;
-* ``no_box_check``   -- every voxel reads its taps from the box, unchecked;
-* ``taps_from_global`` -- the box is staged but the taps are read from
-  global memory, as the walk kernel reads them.
+* ``as_is``         -- the kernel as committed, ``planner.STAGES`` box
+  buffers per CTA;
+* ``stages_1``      -- the same build with one buffer: each box is loaded,
+  waited for and computed in turn (no load overlaps the compute);
+* ``stages_3``      -- the same build with three buffers (null where three
+  boxes do not fit shared memory);
+* ``no_load``       -- no TMA copy: each buffer's barrier completes its
+  transaction count at once and the taps read stale shared memory: the
+  compute alone;
+* ``no_compute``    -- the boxes are staged, then each voxel stores one value
+  of its box: the staging alone;
+* ``tile_4x8x32_256`` -- both orders on (4, 8, 32) bricks of 256 threads
+  (the tile before the per-order one);
+* ``linear_threads_512`` -- trilinear with 2 threads along z a column;
+* ``cubic_8x8x32`` -- cubic on (8, 8, 32) bricks, 512 threads.
 
-The variants that skip work give wrong results and exist to be timed.  Run
-from the repository root:
+Each variant is planned with its own bricks.  A variant whose boxes do not
+fit for every matrix of a set reads null there.  The variants that skip
+work give wrong results and exist to be timed.  The walk kernel is timed on
+the pitched volume the slab kernel reads (``walk``) and on the same voxels
+contiguous (``walk_contiguous``).  Run from the repository root:
 
     python3 tools/slab_variants.py
 
 It prints the card's name and power limit, then one JSON line per matrix
-set: ms per 250^3 matrix, one matrix per launch, for the walk kernel and
-each variant.
+set and order: ms per 250^3 matrix, one matrix per launch, for the walk
+kernel and each variant, with the plans' box voxels per output voxel.
 """
 
 import ctypes
@@ -38,38 +44,50 @@ import sys
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
 
+STAGE_BOX_TMA = '''  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(
+          shared_address(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(b)
+      : "memory");'''
+COMPUTE = "  const SharedSource shared{box, lo.z, lo.y, lo.x, e[1], e[2]};\n"
+
+
+def tile(bz_linear, tz_linear, bz_cubic, tz_cubic):
+    """A variant whose kernel has these bricks along z and threads along
+    z, per order: its edits, and the bricks the planner plans it with."""
+    edits = [("static constexpr int kBz = ORDER == 1 ? 8 : 4;",
+              f"static constexpr int kBz = ORDER == 1 ? {bz_linear} : "
+              f"{bz_cubic};"),
+             ("static constexpr int kTz = ORDER == 1 ? 1 : 2;",
+              f"static constexpr int kTz = ORDER == 1 ? {tz_linear} : "
+              f"{tz_cubic};")]
+    return edits, None, {1: (bz_linear, 8, 32), 3: (bz_cubic, 8, 32)}
+
+
+# name: (edits of the source, stages, bricks the planner plans with)
 VARIANTS = {
-    "as_is": [],
-    "plain_loads": [(
-        "      __pipeline_memcpy_async(dst + xx, src + xx, sizeof(float));",
-        "      dst[xx] = __ldg(src + xx);")],
-    "no_carveout": [(
-        "  return cudaFuncSetAttribute(kernel,\n"
-        "                              cudaFuncAttributePreferredSharedMemoryCarveout,\n"
-        "                              cudaSharedmemCarveoutMaxShared);",
-        "  return cudaSuccess;")],
-    "no_load": [(
-        "      __pipeline_memcpy_async(dst + xx, src + xx, sizeof(float));",
-        "      ;")],
-    "no_compute": [(
-        "  const int v = v0 + threadIdx.y;\n",
-        "  {\n"
-        "    const int v = v0 + threadIdx.y, w = w0 + threadIdx.x;\n"
-        "    const int n_box = max(1, cnt[0] * cnt[1] * cnt[2]);\n"
-        "    if (v <= v1 && w <= w1) {\n"
-        "      for (int u = u0; u <= u1; ++u) {\n"
-        "        out[((static_cast<long long>(b) * o0 + u) * o1 + v) *\n"
-        "                static_cast<long long>(o2) + w] =\n"
-        "            box[(threadIdx.y * kBx + threadIdx.x) % n_box];\n"
-        "      }\n"
-        "    }\n"
-        "    return;\n"
-        "  }\n"
-        "  const int v = v0 + threadIdx.y;\n")],
-    "no_box_check": [("    if (in_box) {", "    if (true) {")],
-    "taps_from_global": [(
-        "      *dst = resample::tap_sum<ORDER, CONSTANT>(taps, shared);",
-        "      *dst = resample::tap_sum<ORDER, CONSTANT>(taps, global);")],
+    "as_is": ([], None, None),
+    "stages_1": ([], 1, None),
+    "stages_3": ([], 3, None),
+    "no_load": ([(STAGE_BOX_TMA,
+                  '  asm volatile("mbarrier.complete_tx.shared::cta.b64 '
+                  '[%0], %1;" ::"r"(b), "r"(bytes) : "memory");')],
+                None, None),
+    "no_compute": ([(COMPUTE,
+                     "  {\n"
+                     "    const int n_box = e[0] * e[1] * e[2];\n"
+                     "    for (int u = br.u0; u <= br.u1; ++u) {\n"
+                     "      out[((br.b * o0 + u) * o1 + v) *\n"
+                     "              static_cast<long long>(o2) + w] =\n"
+                     "          box[(threadIdx.y * 32 + threadIdx.x) % "
+                     "n_box];\n"
+                     "    }\n"
+                     "    return;\n"
+                     "  }\n" + COMPUTE)], None, None),
+    "tile_4x8x32_256": tile(4, 1, 4, 1),
+    "linear_threads_512": tile(8, 2, 4, 2),
+    "cubic_8x8x32": tile(8, 1, 8, 2),
 }
 
 
@@ -82,9 +100,9 @@ def main():
     if not torch.cuda.is_available():
         print("slab_variants: no CUDA device", file=sys.stderr)
         return 1
-    from voltools_tpu_torch.kernels import _build
+    from voltools_tpu_torch.kernels import _build, planner
     from voltools_tpu_torch.kernels import affine_resample as walk_module
-    from voltools_tpu_torch.kernels.planner import choose_plan
+    from voltools_tpu_torch.kernels.layout import pitched
     from voltools_tpu_torch.utils import transform_matrix
 
     print(subprocess.run(
@@ -92,13 +110,21 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip(), flush=True)
     source = open(_build.CSRC_DIR / "affine_slab.cu").read()
+    # one build per distinct set of edits; variants that differ only in
+    # their stages share it
+    builds = {}
+    for name, (edits, _, _) in VARIANTS.items():
+        builds.setdefault(tuple(edits), name)
+    build_of = {name: builds[tuple(edits)]
+                for name, (edits, _, _) in VARIANTS.items()}
+    builds = sorted(builds.values())
     tmp = tempfile.mkdtemp()
     try:
         shutil.copy(_build.CSRC_DIR / "resample_taps.cuh", tmp)
 
         def build(name):
             text = source
-            for old, new in VARIANTS[name]:
+            for old, new in VARIANTS[name][0]:
                 assert old in text, (name, old)
                 text = text.replace(old, new)
             path = os.path.join(tmp, f"{name}.cu")
@@ -110,24 +136,26 @@ def main():
                            timeout=600)
             return lib
 
-        with ThreadPoolExecutor(len(VARIANTS)) as pool:
-            paths = dict(zip(VARIANTS, pool.map(build, VARIANTS)))
-        launch = {}
+        with ThreadPoolExecutor(len(builds)) as pool:
+            paths = dict(zip(builds, pool.map(build, builds)))
+        libs = {}
         for name, path in paths.items():
             fn = ctypes.CDLL(path).affine_slab_launch
-            fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
-                           + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                           + [ctypes.c_int] * 8
+            fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p, ctypes.c_longlong,
+                              ctypes.c_void_p]
+                           + [ctypes.c_int] * 9
                            + [ctypes.c_float, ctypes.c_void_p,
                               ctypes.c_void_p])
             fn.restype = ctypes.c_int
-            launch[name] = fn
+            libs[name] = fn
 
         dev = torch.device("cuda", 0)
         shape = (250,) * 3
         rng = np.random.default_rng(0)   # bench.py's volume and rotations
-        vol = torch.from_numpy(rng.random(shape, dtype=np.float64).astype(
+        flat = torch.from_numpy(rng.random(shape, dtype=np.float64).astype(
             np.float32)).to(dev)
+        vol = pitched(flat)
         rots = np.stack([transform_matrix(
             rotation=tuple(rng.uniform(-180, 180, 3)), rotation_order="sxyz",
             center=(125.0,) * 3) for _ in range(16)]).astype(np.float32)
@@ -159,29 +187,58 @@ def main():
             torch.cuda.synchronize()
             return start.elapsed_time(end) / reps
 
+        def plans_for(ms, interp, bricks):
+            """The plans of ``ms`` with ``bricks`` (the committed ones
+            for None), and their box voxels per output voxel."""
+            saved = planner.BRICK
+            planner.BRICK = bricks or saved
+            try:
+                plans = [planner.slab_plan(m, shape, interp) for m in ms]
+                return plans, [p and p.box_per_voxel for p in plans]
+            finally:
+                planner.BRICK = saved
+
         sets = {"tilt_axis_1": tilts(1), "tilt_axis_0": tilts(0),
                 "random": rots}
         for set_name, ms in sets.items():
             for order, interp in ((1, "linear"), (3, "bspline")):
-                plans = [choose_plan(m, shape, interp) for m in ms]
+                plans, _ = plans_for(ms, interp, None)
                 fit = [i for i, p in enumerate(plans) if p is not None]
                 ms_dev = torch.from_numpy(ms).to(dev)
-                row = {"matrices": len(fit), "walk": time_ms(
-                    lambda i: walk_module.affine_resample(
-                        vol, ms_dev[fit[i % len(fit)]], order, out=out),
-                    2 * len(fit))}
-                for name, fn in launch.items():
-                    def one(i, fn=fn):
+                row = {}
+                for key, v in (("walk", vol), ("walk_contiguous", flat)):
+                    row[key] = time_ms(
+                        lambda i, v=v: walk_module.affine_resample(
+                            v, ms_dev[fit[i % len(fit)]], order, out=out),
+                        2 * len(fit))
+                ratio = {}
+                for name, (_, stages, bricks) in VARIANTS.items():
+                    fn = libs[build_of[name]]
+                    vplans, ratios = plans_for(ms, interp, bricks)
+                    if any(vplans[j] is None for j in fit):
+                        row[name] = None
+                        continue
+                    ratio[name] = float(np.median([ratios[j] for j in fit]))
+
+                    def one(i, fn=fn, vplans=vplans,
+                            stages=stages or planner.STAGES):
                         j = fit[i % len(fit)]
-                        code = fn(vol.data_ptr(), *shape,
+                        return fn(vol.data_ptr(), *shape, vol.stride(1),
                                   ms_dev[j].data_ptr(), 1, out.data_ptr(),
-                                  *shape, *plans[j].extents, order, 0, 0.0,
-                                  counter.data_ptr(),
+                                  *shape, *vplans[j].extents, stages, order,
+                                  0, 0.0, counter.data_ptr(),
                                   torch.cuda.current_stream().cuda_stream)
-                        assert code == 0, (name, code)
+                    # every launch must go: where the boxes do not fit
+                    # shared memory, the variant has no time
+                    if any(one(i) != 0 for i in range(len(fit))):
+                        row[name] = None
+                        continue
                     row[name] = time_ms(one, 2 * len(fit))
                 print(json.dumps({"set": set_name, "order": order,
-                                  "ms_per_matrix": row}), flush=True)
+                                  "matrices": len(fit),
+                                  "ms_per_matrix": row,
+                                  "median_box_per_voxel": ratio}),
+                      flush=True)
     finally:
         shutil.rmtree(tmp)
     return 0

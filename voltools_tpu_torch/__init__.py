@@ -6,9 +6,10 @@ edges, a one-shot functional API, a device-resident ``StaticVolume`` with
 batched transforms, and the tilt-series models (``models``: projector,
 weighted back-projection, SIRT).  The resampling runs in two hand-written
 CUDA kernels that compute the same function: ``csrc/affine_slab.cu``
-stages each output brick's source box in shared memory and takes the
-matrices whose box fits its budget, ``csrc/affine_resample.cu`` gathers
-from global memory and takes the rest (``kernels/planner.py``).  Both are
+stages each output brick's source box in shared memory with TMA,
+``csrc/affine_resample.cu`` gathers from global memory, and the planner
+gives each launch to the faster of the two for its matrices
+(``kernels/planner.py``).  Both are
 built with ``nvcc`` at first use; the plain torch versions serve
 ``device='cpu'``.
 

@@ -44,7 +44,9 @@
 //
 // grid.x runs over (x block, y, z) of the output, grid.y over the matrices;
 // output offsets are 64-bit.  One build serves every matrix, cval and
-// shape; order (1, 3) and mode are template arguments.
+// shape; order (1, 3) and mode are template arguments.  The volume's rows
+// lie `pitch` floats apart, so the pitched resident volume that the slab
+// kernel's TMA copies need (kernels/layout.py) serves this kernel too.
 
 #include <cuda_runtime.h>
 
@@ -59,7 +61,7 @@ constexpr int kThreads = 128;
 template <int ORDER, bool CONSTANT>
 __global__ void __launch_bounds__(kThreads)
 affine_resample_kernel(const float* __restrict__ vol, int d0, int d1, int d2,
-                       const float* __restrict__ mats,
+                       int pitch, const float* __restrict__ mats,
                        float* __restrict__ out, int o0, int o1, int o2,
                        int x_blocks, float cval) {
   const int row = blockIdx.x / x_blocks;  // z * o1 + y of the output
@@ -90,32 +92,33 @@ affine_resample_kernel(const float* __restrict__ vol, int d0, int d1, int d2,
   resample::Taps<ORDER> taps;
   resample::make_taps<ORDER, CONSTANT>(s, n, &taps);
   *dst = resample::tap_sum<ORDER, CONSTANT>(
-      taps, resample::GlobalSource{vol, d1, d2});
+      taps, resample::GlobalSource{vol, d1, pitch});
 }
 
 template <int ORDER, bool CONSTANT>
 void launch(dim3 grid, cudaStream_t stream, const float* vol, int d0, int d1,
-            int d2, const float* mats, float* out, int o0, int o1, int o2,
-            int x_blocks, float cval) {
+            int d2, int pitch, const float* mats, float* out, int o0, int o1,
+            int o2, int x_blocks, float cval) {
   affine_resample_kernel<ORDER, CONSTANT><<<grid, kThreads, 0, stream>>>(
-      vol, d0, d1, d2, mats, out, o0, o1, o2, x_blocks, cval);
+      vol, d0, d1, d2, pitch, mats, out, o0, o1, o2, x_blocks, cval);
 }
 
 }  // namespace
 
-// C entry, bound with ctypes.  vol: (d0, d1, d2) float32, contiguous.
+// C entry, bound with ctypes.  vol: (d0, d1, d2) float32, rows of x
+// contiguous and `pitch` >= d2 floats apart, planes d1 * pitch apart.
 // mats: (n, 4, 4) float32, contiguous, on the same device.  out: (n, o0,
 // o1, o2) float32, contiguous.  order: 1 or 3.  border: 0 for 'constant',
 // 1 for 'border'.  Launches on `stream`, on the calling thread's current
 // device (the caller makes it the tensors' device), without synchronising,
 // and returns cudaGetLastError() (0 on success).
 extern "C" int affine_resample_launch(const float* vol, int d0, int d1,
-                                      int d2, const float* mats, int n,
-                                      float* out, int o0, int o1, int o2,
-                                      int order, int border, float cval,
-                                      void* stream) {
-  if ((order != 1 && order != 3) || d0 < 1 || d1 < 1 || d2 < 1 || n < 1 ||
-      n > 65535 || o0 < 1 || o1 < 1 || o2 < 1) {
+                                      int d2, int pitch, const float* mats,
+                                      int n, float* out, int o0, int o1,
+                                      int o2, int order, int border,
+                                      float cval, void* stream) {
+  if ((order != 1 && order != 3) || d0 < 1 || d1 < 1 || d2 < 1 ||
+      pitch < d2 || n < 1 || n > 65535 || o0 < 1 || o1 < 1 || o2 < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int x_blocks = (o2 + kThreads - 1) / kThreads;
@@ -124,13 +127,13 @@ extern "C" int affine_resample_launch(const float* vol, int d0, int d1,
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (order == 1 && !border) {
-    launch<1, true>(grid, s, vol, d0, d1, d2, mats, out, o0, o1, o2, x_blocks, cval);
+    launch<1, true>(grid, s, vol, d0, d1, d2, pitch, mats, out, o0, o1, o2, x_blocks, cval);
   } else if (order == 1) {
-    launch<1, false>(grid, s, vol, d0, d1, d2, mats, out, o0, o1, o2, x_blocks, cval);
+    launch<1, false>(grid, s, vol, d0, d1, d2, pitch, mats, out, o0, o1, o2, x_blocks, cval);
   } else if (!border) {
-    launch<3, true>(grid, s, vol, d0, d1, d2, mats, out, o0, o1, o2, x_blocks, cval);
+    launch<3, true>(grid, s, vol, d0, d1, d2, pitch, mats, out, o0, o1, o2, x_blocks, cval);
   } else {
-    launch<3, false>(grid, s, vol, d0, d1, d2, mats, out, o0, o1, o2, x_blocks, cval);
+    launch<3, false>(grid, s, vol, d0, d1, d2, pitch, mats, out, o0, o1, o2, x_blocks, cval);
   }
   return static_cast<int>(cudaGetLastError());
 }

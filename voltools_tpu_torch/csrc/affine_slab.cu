@@ -1,6 +1,6 @@
 // Affine resampling of a 3-D float32 volume through N 4x4 pull-back matrices,
-// with the taps of each output brick read from a source box staged in
-// shared memory.
+// with the taps of each output brick read from a source box that TMA
+// stages in shared memory while the CTA computes the brick before it.
 //
 // Replaces the TPU select-tree Pallas kernel
 // voltools_tpu/kernels/pallas_affine.py::_make_kernel (launched by
@@ -11,65 +11,121 @@
 // or 'border' with cval.  The per-voxel arithmetic is resample_taps.cuh,
 // shared with affine_resample.cu, so the two kernels agree bit for bit.
 //
-// What it computes of the TPU kernel, not how: the TPU kernel DMAs a slab
-// of w0 x w1 full-x rows per (8 x 128) output tile into VMEM, resolves x by
-// lane gathers with slop taps and rows by a select-tree.  None of that
-// carries over (no x padding to 128 lanes, no axis permutation, no
-// select-tree, no slop taps, no DMA pipeline): a CTA gathers from a 3-D box
-// in any orientation.
+// What it keeps of the TPU kernel: windows of the source in fast memory,
+// several in flight at once (the TPU kernel's DMA ring of 2-4 windows,
+// pallas_affine.py:257-260, 295-342).  What it does not: the slab of
+// full-x rows per (8 x 128) output tile, lane gathers, slop taps, the
+// select-tree and the axis permutations.  A CTA gathers from a 3-D box in
+// any orientation.
 //
-// Each CTA computes one (4, 8, 32) output brick of one matrix (grid.x runs
-// over the bricks, grid.y over the matrices; output offsets are 64-bit):
-//  1. it works out its source box from the source coordinates of the
-//     brick's 8 corners: per axis, floor(min) + first tap - 1 to floor(max)
-//     + last tap + 1, clipped to the volume.  The one voxel of slack on
-//     each side covers a voxel inside the brick whose coordinate floors one
-//     lower or higher than the corners (a rounding at a knife edge), and
-//     the 'constant' cubic mirror tap of a point at exactly n-1 (n-3, one
-//     below floor - 1);
-//  2. it copies the box from global memory into dynamic shared memory, a
-//     warp per row of x, coalesced, with cp.async: every thread starts all
-//     its copies back to back and waits once, so a warp has many copies in
-//     flight (a plain load waits for each before its store to shared
-//     memory, one in flight per warp), then __syncthreads();
-//  3. its 256 threads (32 along x, 8 along y) each evaluate 4 voxels along
-//     z, with every tap read from shared memory.
-// The launch allocates the box extents the planner computed for the
-// envelope of its matrices (kernels/planner.py).  A CTA whose box would
-// exceed them clips the box and counts one overflow; a voxel with a tap
-// outside its CTA's box reads all its taps from global memory and counts
-// one overflow.  So no tap is ever read from outside the box, the result
+// Work items.  An item is one output brick of one matrix ((8, 8, 32) voxels
+// for trilinear, (4, 8, 32) for cubic: Tile below), numbered matrix first,
+// then the brick's z, y and x (64-bit),
+// so CTAs that run at the same time hold neighbouring bricks of one matrix
+// and their boxes meet in L2.  The grid is persistent: SMs x CTAs per SM
+// (from the occupancy query), and CTA c takes items c, c + grid, c + 2 grid
+// and so on, however many matrices the launch has.
+//
+// Each CTA keeps a ring of `stages` box buffers in dynamic shared memory
+// (128-byte aligned), each with its own mbarrier:
+//  1. warp 0 works out the box of an item from the source coordinates of
+//     its brick's 8 corners: along each axis the box starts at floor(min) +
+//     first tap - 1 (along x rounded down to a multiple of 4 floats: TMA
+//     reads rows from 16-byte boundaries) and holds the launch's extents
+//     (the planner's, for the envelope of the launch's matrices: ceil(span)
+//     + taps + 3, and along x 3 more for the rounding, then rounded up to 4
+//     floats).  The one voxel of slack each side covers a voxel
+//     inside the brick whose coordinate floors one lower or higher than the
+//     corners (a rounding at a knife edge), and the 'constant' cubic mirror
+//     tap of a point at exactly n-1 (n-3, one below floor - 1).  Lane 0
+//     writes the box's origin to shared memory, arms the buffer's barrier
+//     with the box's bytes and issues one TMA copy of the box
+//     (cp.async.bulk.tensor.3d), which completes the barrier.
+//  2. The box is not clipped to the volume: TMA fills the voxels outside it
+//     with zeros, and the taps' own masks (resample_taps.cuh: mirror or clip
+//     for 'constant', in-range flags for 'border') never read them.
+//  3. Before item k all threads pass a __syncthreads, so none still reads
+//     buffer (k - 1) % stages; then warp 0 issues item k + stages - 1 into
+//     it; then all threads wait on buffer k % stages (phase parity
+//     (k / stages) & 1: the ring has gone round k / stages times) and its
+//     threads (32 along x, 8 along y, 1 or 2 along z) evaluate the brick's
+//     voxels from the box, each walking its column along z.  So the loads
+//     of the next stages - 1 items are in flight while item k is computed.
+// A voxel with a tap outside its CTA's box (matrices whose box is larger
+// than the launch's extents) reads all its taps from global memory and
+// counts one overflow, so no stale shared memory is ever read, the result
 // is right even then, and the overflow counter says it happened.
+//
+// The tensor map of the volume is encoded on the host for each launch and
+// passed as a __grid_constant__ parameter.  TMA needs every global stride
+// to be a multiple of 16 bytes, so the volume is pitched: its rows lie
+// `pitch` (a multiple of 4) floats apart and the map's x extent is d2, so
+// the padding is out of range to TMA and never read (kernels/layout.py).
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32, an FMA counted
 // as 2 flops): the same function as affine_resample.cu, so the same bound:
 // the source read once per launch and every output voxel written once, or
 // the function's least arithmetic (52 flops linear, 231 cubic, per output
-// voxel inside the source), whichever is larger.  What this design does
-// about it: it reads each source voxel from shared memory for every tap of
-// every voxel of the brick that needs it, instead of through L1/L2 per tap
-// as affine_resample.cu does.  What it leaves for later: the boxes of
-// neighbouring CTAs overlap, so the source is read several times over from
-// L2 (about box / brick = 10x for a 250^3 tilt); the box load is not
-// overlapped with the CTA's compute (TMA and a pipeline would).
+// voxel inside the source), whichever is larger.  What holds it above that
+// bound is not the function but the boxes: the boxes of neighbouring
+// bricks overlap, so the source crosses from L2 to shared memory several
+// times over (box voxels per output voxel, 3-14 at 250^3), and the taps are
+// then read from shared memory.  Measured on the card
+// (tools/slab_variants.py, PERF.md): trilinear, the box traffic and the
+// compute take about as long as each other; cubic, the compute (64 taps a
+// voxel) takes three to four times the traffic.  What this design does
+// about it: it reads each source voxel from shared memory for every tap
+// that needs it, instead of through L1/L2 per tap as affine_resample.cu
+// does; it hides a box's load behind the compute of the items before it
+// (and of the other CTAs on the SM), so a CTA's time is the larger of its
+// traffic and its compute rather than their sum; and per order it takes
+// the tile that keeps most warps busy: cubic's 512 threads give a CTA 16
+// warps where one CTA fills an SM.
+// Where the box per output voxel still makes it the slower kernel, the
+// planner gives the launch to affine_resample.cu (kernels/planner.py).
+// What it leaves for later: a CTA that marched along z could reuse the
+// overlap of consecutive boxes (the TPU kernel's window reuse), and the
+// cubic kernel takes (8, 8, 32) bricks faster where their boxes fit.
 
-#include <cuda_pipeline.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cmath>
+#include <cstdint>
 
 #include "resample_taps.cuh"
 
 namespace {
 
-constexpr int kBz = 4;   // output brick along z, walked by each thread
-constexpr int kBy = 8;   // threadIdx.y
-constexpr int kBx = 32;  // threadIdx.x: a warp stores one row of x
-constexpr int kThreads = kBx * kBy;
-constexpr long long kMaxSharedBytes = 232448;  // 227 KB per block
+// The output brick of a work item and the CTA's threads, per spline order
+// (chosen on the card, tools/slab_variants.py): trilinear takes (8, 8, 32)
+// bricks, 256 threads each walking 8 voxels along z, which halves the
+// per-item overhead against (4, 8, 32); cubic, whose time is its compute,
+// takes (4, 8, 32) bricks with 512 threads, 2 along z a column, so a CTA
+// has 16 warps even where one CTA fills an SM.
+template <int ORDER>
+struct Tile {
+  static constexpr int kBz = ORDER == 1 ? 8 : 4;  // output brick along z
+  static constexpr int kBy = 8;    // threadIdx.y
+  static constexpr int kBx = 32;   // threadIdx.x: a warp stores a row of x
+  static constexpr int kTz = ORDER == 1 ? 1 : 2;  // threadIdx.z
+  static constexpr int kThreads = kBx * kBy * kTz;
+  static_assert(kBz % kTz == 0, "threads along z must divide the brick");
+};
+constexpr int kMaxStages = 4;
+constexpr int kMaxBox = 256;  // TMA's largest box extent along any axis
+constexpr int kAlign = 128;   // TMA's alignment of a shared-memory box
+constexpr int kRowAlign = 4;  // floats: TMA's row unit and x alignment
+// 227 KB of shared memory a block, less a reserve for the static barriers
+// and box origins
+constexpr long long kMaxDynamicBytes = 232448 - 1024;
 
-// Taps read from the staged box: source voxels from (lz, ly, lx) on, with
+// error codes of the C entries besides the CUDA runtime's
+constexpr int kNoEncoder = -1;     // the driver has no cuTensorMapEncodeTiled
+constexpr int kMapRefused = -2;    // it refused the volume's tensor map
+
+// Taps read from a staged box: source voxels from (lz, ly, lx) on, with
 // ny x nx voxels per z-plane of the box and nx per row.
 struct SharedSource {
   using Offset = int;
@@ -86,91 +142,160 @@ struct SharedSource {
   }
 };
 
-template <int ORDER, bool CONSTANT>
-__global__ void __launch_bounds__(kThreads)
-affine_slab_kernel(const float* __restrict__ vol, int d0, int d1, int d2,
-                   const float* __restrict__ mats, float* __restrict__ out,
-                   int o0, int o1, int o2, int bricks_y, int bricks_x,
-                   int e0, int e1, int e2, float cval, int* overflows) {
-  extern __shared__ float box[];
-  constexpr int kTaps = resample::TapCount<ORDER>::kTaps;
-  constexpr int kFirst = resample::TapCount<ORDER>::kFirst;
+// One work item: brick (u0..u1, v0..v1, w0..w1) of the output of matrix b.
+struct Brick {
+  long long b;
+  int u0, v0, w0;
+  int u1, v1, w1;  // last output voxel along each axis (ragged at the edges)
+};
 
-  const int bx = blockIdx.x % bricks_x;
-  const int rest = blockIdx.x / bricks_x;
+struct Origin {
+  int z, y, x;  // the first source voxel of a box
+};
+
+template <int ORDER>
+__device__ __forceinline__ Brick brick_of(long long item, long long bricks,
+                                          int bricks_y, int bricks_x, int o0,
+                                          int o1, int o2) {
+  using T = Tile<ORDER>;
+  Brick br;
+  br.b = item / bricks;
+  const int r = static_cast<int>(item - br.b * bricks);
+  const int bx = r % bricks_x;
+  const int rest = r / bricks_x;
   const int by = rest % bricks_y;
   const int bz = rest / bricks_y;
-  const int u0 = bz * kBz, v0 = by * kBy, w0 = bx * kBx;
-  // last output voxel of the brick along each axis (ragged at the edges)
-  const int u1 = min(u0 + kBz, o0) - 1;
-  const int v1 = min(v0 + kBy, o1) - 1;
-  const int w1 = min(w0 + kBx, o2) - 1;
-  const int b = blockIdx.y;
+  br.u0 = bz * T::kBz;
+  br.v0 = by * T::kBy;
+  br.w0 = bx * T::kBx;
+  br.u1 = min(br.u0 + T::kBz, o0) - 1;
+  br.v1 = min(br.v0 + T::kBy, o1) - 1;
+  br.w1 = min(br.w0 + T::kBx, o2) - 1;
+  return br;
+}
 
+// The origin of a brick's box: along each source axis, floor(min over the
+// brick's 8 corners) + first tap - 1, and along x that rounded down to a
+// multiple of 4 (TMA starts a row on a 16-byte boundary; a box whose x
+// origin is not one faults with an illegal instruction on the H100).  A
+// whole warp calls it: lane 8a + c evaluates corner c along axis a (lanes
+// 24-31 repeat axis 2), a butterfly over each 8 lanes takes the min, and
+// every lane gets the origin.
+template <int ORDER>
+__device__ __forceinline__ Origin box_origin(const float* m, const Brick& br) {
+  constexpr int kFirst = resample::TapCount<ORDER>::kFirst;
+  const int a = min(static_cast<int>(threadIdx.x) >> 3, 2);
+  const int c = threadIdx.x & 7;
+  float s = resample::source_coord(
+      __ldg(m + 4 * a), __ldg(m + 4 * a + 1), __ldg(m + 4 * a + 2),
+      __ldg(m + 4 * a + 3), static_cast<float>(c & 4 ? br.u1 : br.u0),
+      static_cast<float>(c & 2 ? br.v1 : br.v0),
+      static_cast<float>(c & 1 ? br.w1 : br.w0));
+#pragma unroll
+  for (int lane = 1; lane < 8; lane <<= 1) {
+    s = fminf(s, __shfl_xor_sync(0xffffffffu, s, lane));
+  }
+  // clamped first, so that the conversion to int cannot overflow
+  constexpr float kFar = 1.0e9f;
+  const int lo =
+      static_cast<int>(floorf(fminf(fmaxf(s, -kFar), kFar))) + kFirst - 1;
+  return Origin{__shfl_sync(0xffffffffu, lo, 0),
+                __shfl_sync(0xffffffffu, lo, 8),
+                __shfl_sync(0xffffffffu, lo, 16) & ~(kRowAlign - 1)};
+}
+
+__device__ __forceinline__ uint32_t shared_address(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void barrier_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   shared_address(bar)),
+               "r"(1u)
+               : "memory");
+}
+
+// Spin until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void barrier_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = shared_address(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Stage one box whose first voxel is (z, y, x) into `dst`: arm the barrier
+// with the box's bytes (those TMA fills with zeros count too), then one TMA
+// copy, which completes the barrier's transaction count when it lands.
+__device__ __forceinline__ void stage_box(float* dst, const CUtensorMap* map,
+                                          uint64_t* bar, uint32_t bytes,
+                                          int z, int y, int x) {
+  const uint32_t b = shared_address(bar);
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(
+          shared_address(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(b)
+      : "memory");
+}
+
+// Warp 0: issue the load of this CTA's k-th item into buffer k % stages
+// (nothing past the last item).
+template <int ORDER>
+__device__ __forceinline__ void load_item(
+    long long k, const CUtensorMap* map, const float* __restrict__ mats,
+    long long bricks, int bricks_y, int bricks_x, long long items, int o0,
+    int o1, int o2, int stages, float* buffers, int stride,
+    uint32_t box_bytes, uint64_t* full, Origin* origin) {
+  const long long item = blockIdx.x + k * gridDim.x;
+  if (item >= items) return;
+  const Brick br =
+      brick_of<ORDER>(item, bricks, bricks_y, bricks_x, o0, o1, o2);
+  const Origin lo = box_origin<ORDER>(mats + 16 * br.b, br);
+  if (threadIdx.x == 0) {
+    const int i = static_cast<int>(k % stages);
+    // read after the barrier's wait: its arrive orders this write
+    origin[i] = lo;
+    // the threads' reads of this buffer (item k - stages) come before the
+    // async proxy's write into it
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    stage_box(buffers + i * stride, map, &full[i], box_bytes, lo.z, lo.y,
+              lo.x);
+  }
+}
+
+// Every voxel of brick `br` that this thread owns (column (v0 + ty, w0 +
+// tx), every kTz-th voxel along z from u0 + tz), with its taps read from
+// the box at `lo`.
+template <int ORDER, bool CONSTANT>
+__device__ __forceinline__ void brick_from_box(
+    const Brick& br, const Origin& lo, const float* box,
+    const float* __restrict__ mats, const resample::GlobalSource& global,
+    const int n[3], const int e[3], float* __restrict__ out, int o0, int o1,
+    int o2, float cval, int* overflows) {
+  constexpr int kTaps = resample::TapCount<ORDER>::kTaps;
+  const int v = br.v0 + threadIdx.y;
+  const int w = br.w0 + threadIdx.x;
+  if (v > br.v1 || w > br.w1) return;
   float m[12];
 #pragma unroll
-  for (int i = 0; i < 12; ++i) m[i] = __ldg(mats + 16 * b + i);
-
-  // 1. the source box of this brick
-  const int n[3] = {d0, d1, d2};
-  const int e[3] = {e0, e1, e2};
-  int lo[3], cnt[3];
-  bool clipped = false;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    float smin = INFINITY, smax = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float s = resample::source_coord(
-          m[4 * a], m[4 * a + 1], m[4 * a + 2], m[4 * a + 3],
-          static_cast<float>(c & 4 ? u1 : u0),
-          static_cast<float>(c & 2 ? v1 : v0),
-          static_cast<float>(c & 1 ? w1 : w0));
-      smin = fminf(smin, s);
-      smax = fmaxf(smax, s);
-    }
-    // clamped first, so that the conversion to int cannot overflow
-    constexpr float kFar = 1.0e9f;
-    const int flo = static_cast<int>(floorf(fminf(fmaxf(smin, -kFar), kFar)));
-    const int fhi = static_cast<int>(floorf(fminf(fmaxf(smax, -kFar), kFar)));
-    const int l = max(flo + kFirst - 1, 0);
-    const int h = min(fhi + kFirst + kTaps, n[a] - 1);
-    int count = max(h - l + 1, 0);
-    if (count > e[a]) {
-      count = e[a];
-      clipped = true;
-    }
-    lo[a] = l;
-    cnt[a] = count;
-  }
-  if (clipped && threadIdx.x == 0 && threadIdx.y == 0) {
-    atomicAdd(overflows, 1);
-  }
-
-  // 2. stage it in shared memory, a warp per row
-  const int rows = cnt[0] * cnt[1];
-  for (int r = threadIdx.y; r < rows; r += kBy) {
-    const int zz = r / cnt[1];
-    const int yy = r - zz * cnt[1];
-    const float* src =
-        vol + (static_cast<long long>(lo[0] + zz) * d1 + (lo[1] + yy)) * d2 +
-        lo[2];
-    float* dst = box + r * cnt[2];
-    for (int xx = threadIdx.x; xx < cnt[2]; xx += kBx) {
-      __pipeline_memcpy_async(dst + xx, src + xx, sizeof(float));
-    }
-  }
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-  __syncthreads();
-
-  // 3. every voxel of the brick, from the box
-  const int v = v0 + threadIdx.y;
-  const int w = w0 + threadIdx.x;
-  if (v > v1 || w > w1) return;
-  const SharedSource shared{box, lo[0], lo[1], lo[2], cnt[1], cnt[2]};
-  const resample::GlobalSource global{vol, d1, d2};
-  for (int u = u0; u <= u1; ++u) {
+  for (int i = 0; i < 12; ++i) m[i] = __ldg(mats + 16 * br.b + i);
+  const SharedSource shared{box, lo.z, lo.y, lo.x, e[1], e[2]};
+  const int l[3] = {lo.z, lo.y, lo.x};
+  for (int u = br.u0 + static_cast<int>(threadIdx.z); u <= br.u1;
+       u += Tile<ORDER>::kTz) {
     float s[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
@@ -179,9 +304,9 @@ affine_slab_kernel(const float* __restrict__ vol, int d0, int d1, int d2,
                                     static_cast<float>(v),
                                     static_cast<float>(w));
     }
-    float* dst = out + ((static_cast<long long>(b) * o0 + u) * o1 + v) *
+    float* dst = out + ((br.b * o0 + u) * o1 + v) *
                            static_cast<long long>(o2) + w;
-    if (!resample::inside<CONSTANT>(s, d0, d1, d2)) {
+    if (!resample::inside<CONSTANT>(s, n[0], n[1], n[2])) {
       *dst = cval;
       continue;
     }
@@ -194,8 +319,8 @@ affine_slab_kernel(const float* __restrict__ vol, int d0, int d1, int d2,
     for (int a = 0; a < 3; ++a) {
 #pragma unroll
       for (int k = 0; k < kTaps; ++k) {
-        const int i = taps.idx[a][k] - lo[a];
-        in_box &= (!CONSTANT && !taps.ok[a][k]) || (i >= 0 && i < cnt[a]);
+        const int i = taps.idx[a][k] - l[a];
+        in_box &= (!CONSTANT && !taps.ok[a][k]) || (i >= 0 && i < e[a]);
       }
     }
     if (in_box) {
@@ -207,20 +332,112 @@ affine_slab_kernel(const float* __restrict__ vol, int d0, int d1, int d2,
   }
 }
 
-using Kernel = void (*)(const float*, int, int, int, const float*, float*,
-                        int, int, int, int, int, int, int, int, float, int*);
+template <int ORDER, bool CONSTANT>
+__global__ void __launch_bounds__(Tile<ORDER>::kThreads)
+affine_slab_kernel(const __grid_constant__ CUtensorMap map,
+                   const float* __restrict__ vol, int d0, int d1, int d2,
+                   int pitch, const float* __restrict__ mats,
+                   float* __restrict__ out, int o0, int o1, int o2,
+                   int bricks_y, int bricks_x, long long bricks,
+                   long long items, int e0, int e1, int e2, int stages,
+                   float cval, int* overflows) {
+  extern __shared__ unsigned char smem[];
+  __shared__ uint64_t full[kMaxStages];
+  __shared__ Origin origin[kMaxStages];
 
-Kernel kernel_for(int order, int border) {
-  if (order == 1 && !border) return affine_slab_kernel<1, true>;
-  if (order == 1) return affine_slab_kernel<1, false>;
-  if (!border) return affine_slab_kernel<3, true>;
-  return affine_slab_kernel<3, false>;
+  // the ring: `stages` buffers of one box each, 128-byte aligned
+  const uint32_t skew = (kAlign - shared_address(smem) % kAlign) % kAlign;
+  float* const buffers = reinterpret_cast<float*>(smem + skew);
+  const int box_floats = e0 * e1 * e2;
+  constexpr int kAlignFloats = kAlign / 4;
+  const int stride =
+      (box_floats + kAlignFloats - 1) / kAlignFloats * kAlignFloats;
+  const uint32_t box_bytes = 4u * static_cast<uint32_t>(box_floats);
+
+  if (threadIdx.x == 0 && threadIdx.y == 0 && threadIdx.z == 0) {
+    for (int i = 0; i < stages; ++i) barrier_init(&full[i]);
+    // the barriers' initialisation is seen by the async proxy (TMA) too
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  const bool producer = threadIdx.y == 0 && threadIdx.z == 0;  // warp 0
+  if (producer) {
+    for (int k = 0; k < stages - 1; ++k) {
+      load_item<ORDER>(k, &map, mats, bricks, bricks_y, bricks_x, items, o0,
+                       o1, o2, stages, buffers, stride, box_bytes, full,
+                       origin);
+    }
+  }
+  const int n[3] = {d0, d1, d2};
+  const int e[3] = {e0, e1, e2};
+  const resample::GlobalSource global{vol, d1, pitch};
+  for (long long k = 0;; ++k) {
+    const long long item = blockIdx.x + k * gridDim.x;
+    if (item >= items) break;
+    // no thread still reads the buffer of item k - 1: load item
+    // k + stages - 1 into it, then compute item k
+    __syncthreads();
+    if (producer) {
+      load_item<ORDER>(k + stages - 1, &map, mats, bricks, bricks_y,
+                       bricks_x, items, o0, o1, o2, stages, buffers, stride,
+                       box_bytes, full, origin);
+    }
+    const int i = static_cast<int>(k % stages);
+    barrier_wait(&full[i], static_cast<uint32_t>((k / stages) & 1));
+    const Origin lo = origin[i];
+    const Brick br =
+        brick_of<ORDER>(item, bricks, bricks_y, bricks_x, o0, o1, o2);
+    brick_from_box<ORDER, CONSTANT>(br, lo, buffers + i * stride, mats,
+                                    global, n, e, out, o0, o1, o2, cval,
+                                    overflows);
+  }
+}
+
+using Kernel = void (*)(CUtensorMap, const float*, int, int, int, int,
+                        const float*, float*, int, int, int, int, int,
+                        long long, long long, int, int, int, int, float, int*);
+
+// A kernel and its tile: brick (bz, by, bx) and threads (bx, by, tz).
+struct Launch {
+  Kernel kernel;
+  int bz, by, bx, tz;
+  int threads() const { return bx * by * tz; }
+};
+
+template <int ORDER, bool CONSTANT>
+Launch launch_of() {
+  using T = Tile<ORDER>;
+  return Launch{affine_slab_kernel<ORDER, CONSTANT>, T::kBz, T::kBy, T::kBx,
+                T::kTz};
+}
+
+Launch kernel_for(int order, int border) {
+  if (order == 1 && !border) return launch_of<1, true>();
+  if (order == 1) return launch_of<1, false>();
+  if (!border) return launch_of<3, true>();
+  return launch_of<3, false>();
+}
+
+// Dynamic shared memory of a launch: `stages` boxes, each rounded up to
+// 128 bytes, and 128 bytes to align the first.
+long long shared_bytes(int e0, int e1, int e2, int stages) {
+  const long long box = 4LL * e0 * e1 * e2;
+  return stages * ((box + kAlign - 1) / kAlign * kAlign) + kAlign;
+}
+
+bool box_ok(int e0, int e1, int e2, int stages) {
+  return e0 >= 1 && e1 >= 1 && e2 >= 1 && e0 <= kMaxBox && e1 <= kMaxBox &&
+         e2 <= kMaxBox && e2 % kRowAlign == 0 && stages >= 1 &&
+         stages <= kMaxStages &&
+         shared_bytes(e0, e1, e2, stages) <= kMaxDynamicBytes;
 }
 
 // Allow `smem` bytes of dynamic shared memory per block (above 48 KB only
 // after asking), and ask for the SM's largest shared-memory carveout, so
-// that as many CTAs share an SM as affine_slab_blocks_per_sm reports,
-// whatever carveout the CUDA runtime would pick by itself.
+// that as many CTAs share an SM as the occupancy query reports, whatever
+// carveout the CUDA runtime would pick by itself.
 cudaError_t prepare(Kernel kernel, long long smem) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -233,64 +450,139 @@ cudaError_t prepare(Kernel kernel, long long smem) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled is a driver call: its entry point comes from the
+// driver through the runtime, so the library does not link libcuda.
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(fn)
+               : nullptr;
+  }();
+  return encode;
+}
+
+// The tensor map of a pitched (d0, d1, d2) float32 volume for boxes of
+// (e0, e1, e2) voxels: x extent d2 (the padding is out of range), rows
+// 4 * pitch bytes apart, voxels outside the volume filled with zeros.
+int encode_map(CUtensorMap* map, const float* vol, int d0, int d1, int d2,
+               int pitch, int e0, int e1, int e2) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return kNoEncoder;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d2),
+                              static_cast<cuuint64_t>(d1),
+                              static_cast<cuuint64_t>(d0)};
+  const cuuint64_t strides[2] = {4ULL * pitch, 4ULL * pitch * d1};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(e2),
+                             static_cast<cuuint32_t>(e1),
+                             static_cast<cuuint32_t>(e0)};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(vol), dims,
+      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kMapRefused;
+}
+
 }  // namespace
 
-// C entry, bound with ctypes.  vol: (d0, d1, d2) float32, contiguous.
-// mats: (n, 4, 4) float32, contiguous, on the same device.  out: (n, o0,
-// o1, o2) float32, contiguous.  (e0, e1, e2): the box extents per CTA,
-// at most 227 KB of float32.  order: 1 or 3.  border: 0 for 'constant', 1
-// for 'border'.  overflows: one int32 on the device, incremented for each
-// CTA whose box exceeded the extents and each voxel read past its box.
-// Launches on `stream`, on the calling thread's current device (the caller
-// makes it the tensors' device), without synchronising, and returns the
-// first error (0 on success).
+// C entry, bound with ctypes.  vol: (d0, d1, d2) float32, rows of x
+// contiguous and `pitch` floats apart (a multiple of 4, >= d2), planes
+// d1 * pitch apart, 16-byte aligned.  mats: (n, 4, 4) float32, contiguous,
+// on the same device.  out: (n, o0, o1, o2) float32, contiguous.  (e0, e1,
+// e2): the box extents, each at most 256, e2 a multiple of 4.  stages: box
+// buffers per CTA, 1 to 4 (1: no load overlaps the compute).  order: 1 or
+// 3.  border: 0 for 'constant', 1 for 'border'.  overflows: one int32 on
+// the device, incremented for each voxel with a tap outside its box.
+// Launches a persistent grid on `stream`, on the calling thread's current
+// device (the caller makes it the tensors' device), without synchronising,
+// and returns the first error (0 on success).
 extern "C" int affine_slab_launch(const float* vol, int d0, int d1, int d2,
-                                  const float* mats, int n, float* out,
-                                  int o0, int o1, int o2, int e0, int e1,
-                                  int e2, int order, int border, float cval,
-                                  int* overflows, void* stream) {
-  if ((order != 1 && order != 3) || d0 < 1 || d1 < 1 || d2 < 1 || n < 1 ||
-      n > 65535 || o0 < 1 || o1 < 1 || o2 < 1 || e0 < 1 || e1 < 1 ||
-      e2 < 1 || overflows == nullptr) {
+                                  int pitch, const float* mats, long long n,
+                                  float* out, int o0, int o1, int o2, int e0,
+                                  int e1, int e2, int stages, int order,
+                                  int border, float cval, int* overflows,
+                                  void* stream) {
+  if ((order != 1 && order != 3) || d0 < 1 || d1 < 1 || d2 < 1 ||
+      pitch < d2 || pitch % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(vol) % 16 != 0 || n < 1 || o0 < 1 ||
+      o1 < 1 || o2 < 1 || !box_ok(e0, e1, e2, stages) ||
+      overflows == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long smem = 4LL * e0 * e1 * e2;
-  if (smem > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
-  const int bricks_z = (o0 + kBz - 1) / kBz;
-  const int bricks_y = (o1 + kBy - 1) / kBy;
-  const int bricks_x = (o2 + kBx - 1) / kBx;
-  const long long blocks =
+  const Launch k = kernel_for(order, border);
+  const int bricks_z = (o0 + k.bz - 1) / k.bz;
+  const int bricks_y = (o1 + k.by - 1) / k.by;
+  const int bricks_x = (o2 + k.bx - 1) / k.bx;
+  const long long bricks =
       static_cast<long long>(bricks_z) * bricks_y * bricks_x;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (bricks > INT_MAX || n > LLONG_MAX / bricks) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long items = n * bricks;
+  const long long smem = shared_bytes(e0, e1, e2, stages);
 
-  const Kernel kernel = kernel_for(order, border);
-  const cudaError_t err = prepare(kernel, smem);
+  cudaError_t err = prepare(k.kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n));
-  const dim3 block(kBx, kBy);
-  kernel<<<grid, block, static_cast<size_t>(smem),
-           static_cast<cudaStream_t>(stream)>>>(
-      vol, d0, d1, d2, mats, out, o0, o1, o2, bricks_y, bricks_x, e0, e1, e2,
-      cval, overflows);
+  int device = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, k.kernel, k.threads(), static_cast<size_t>(smem));
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long full_grid = static_cast<long long>(sms) * per_sm;
+  const unsigned grid =
+      static_cast<unsigned>(items < full_grid ? items : full_grid);
+
+  CUtensorMap map;
+  const int code = encode_map(&map, vol, d0, d1, d2, pitch, e0, e1, e2);
+  if (code != 0) return code;
+  k.kernel<<<grid, dim3(k.bx, k.by, k.tz), static_cast<size_t>(smem),
+             static_cast<cudaStream_t>(stream)>>>(
+      map, vol, d0, d1, d2, pitch, mats, out, o0, o1, o2, bricks_y, bricks_x,
+      bricks, items, e0, e1, e2, stages, cval, overflows);
   return static_cast<int>(cudaGetLastError());
 }
 
-// How many CTAs of the kernel with a box of (e0, e1, e2) fit one SM at a
-// time, into *blocks; returns the first error (0 on success).
-extern "C" int affine_slab_blocks_per_sm(int e0, int e1, int e2, int order,
-                                         int border, int* blocks) {
-  const long long smem = 4LL * e0 * e1 * e2;
-  if ((order != 1 && order != 3) || e0 < 1 || e1 < 1 || e2 < 1 ||
-      smem > kMaxSharedBytes || blocks == nullptr) {
+// How many CTAs of the kernel with `stages` boxes of (e0, e1, e2) fit one
+// SM at a time, into *blocks; returns the first error (0 on success).
+extern "C" int affine_slab_blocks_per_sm(int e0, int e1, int e2, int stages,
+                                         int order, int border,
+                                         int* blocks) {
+  if ((order != 1 && order != 3) || !box_ok(e0, e1, e2, stages) ||
+      blocks == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Kernel kernel = kernel_for(order, border);
-  const cudaError_t err = prepare(kernel, smem);
+  const long long smem = shared_bytes(e0, e1, e2, stages);
+  const Launch k = kernel_for(order, border);
+  const cudaError_t err = prepare(k.kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, kernel, kThreads, static_cast<size_t>(smem)));
+      blocks, k.kernel, k.threads(), static_cast<size_t>(smem)));
 }
 
 extern "C" const char* affine_slab_error_string(int code) {
+  if (code == kNoEncoder) {
+    return "the CUDA driver has no cuTensorMapEncodeTiled";
+  }
+  if (code == kMapRefused) {
+    return "cuTensorMapEncodeTiled refused the volume's tensor map";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

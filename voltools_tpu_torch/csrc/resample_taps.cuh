@@ -153,16 +153,17 @@ __device__ __forceinline__ float tap_sum(const Taps<ORDER>& t, const S& src) {
 }
 
 // Taps read from the whole (d0, d1, d2) volume in global memory, through
-// the read-only path.
+// the read-only path.  Rows of x lie `pitch` >= d2 floats apart (a pitched
+// volume, kernels/layout.py); columns past d2 are never read.
 struct GlobalSource {
   using Offset = long long;
   const float* __restrict__ vol;
-  int d1, d2;
+  int d1, pitch;
   __device__ __forceinline__ Offset z_offset(int z) const {
-    return static_cast<long long>(z) * d1 * d2;
+    return static_cast<long long>(z) * d1 * pitch;
   }
   __device__ __forceinline__ Offset y_offset(int y) const {
-    return static_cast<long long>(y) * d2;
+    return static_cast<long long>(y) * pitch;
   }
   __device__ __forceinline__ float load(Offset row, int x) const {
     return __ldg(vol + row + x);

@@ -11,7 +11,9 @@ the call raises.
 
 The volume given is sampled as it is: for ``order=3`` it holds B-spline
 coefficients already (``filt_bspline`` prefilters first) or raw samples
-(``bspline``).
+(``bspline``).  It is contiguous or row-pitched (:mod:`.layout`): the
+kernel takes the row pitch, so the pitched resident volume that the slab
+kernel needs serves this one too.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from ..ops.sampling import affine_sample, affine_sample_batch
 from . import _build
+from .layout import row_pitch
 
 NAME = "affine_resample"
 SOURCE = "voltools_tpu_torch/csrc/affine_resample.cu"
@@ -41,6 +44,7 @@ def _library():
     fn = lib.affine_resample_launch
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # volume
+        ctypes.c_int,                                               # pitch
         ctypes.c_void_p, ctypes.c_int,                              # matrices
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # output
         ctypes.c_int, ctypes.c_int, ctypes.c_float,       # order, border, cval
@@ -53,7 +57,8 @@ def _library():
 
 
 def _check(volume, matrices, order, mode, out_shape, out):
-    """Validate the arguments; returns the full output shape."""
+    """Validate the arguments; returns the full output shape.  The volume
+    is contiguous or row-pitched, the other tensors contiguous."""
     if not isinstance(volume, torch.Tensor) or not isinstance(
             matrices, torch.Tensor):
         raise TypeError("volume and matrices must be torch tensors")
@@ -68,8 +73,9 @@ def _check(volume, matrices, order, mode, out_shape, out):
         raise ValueError(
             f"matrices must be (4, 4) or (N, 4, 4), got "
             f"{tuple(matrices.shape)}")
-    if not (volume.is_contiguous() and matrices.is_contiguous()):
-        raise ValueError("volume and matrices must be contiguous")
+    row_pitch(volume)
+    if not matrices.is_contiguous():
+        raise ValueError("matrices must be contiguous")
     if matrices.device != volume.device:
         raise ValueError(
             f"matrices on {matrices.device}, volume on {volume.device}")
@@ -106,14 +112,14 @@ def _plain(volume, matrices, order, mode, cval, out_shape, out):
     return out.copy_(result)
 
 
-def _check_launch(volume, matrices) -> int:
+def _check_launch(volume, matrices, max_batch=MAX_BATCH) -> int:
     """Limits of a CUDA launch; returns the number of matrices."""
     if volume.device.type != "cuda":
         raise ValueError(f"unsupported device {volume.device}")
     n = 1 if matrices.ndim == 2 else matrices.shape[0]
-    if n > MAX_BATCH:
-        raise ValueError(f"at most {MAX_BATCH} matrices per launch, got {n}")
-    if volume.shape[1] * volume.shape[2] >= 2 ** 31:
+    if max_batch is not None and n > max_batch:
+        raise ValueError(f"at most {max_batch} matrices per launch, got {n}")
+    if volume.shape[1] * row_pitch(volume) >= 2 ** 31:
         raise ValueError("a z-plane of the volume must hold < 2**31 voxels")
     return n
 
@@ -127,8 +133,9 @@ def affine_resample(volume: torch.Tensor, matrices: torch.Tensor, order: int,
     stack (N, 4, 4), giving (N, *out_shape) in one launch.  ``out_shape``
     defaults to the volume's shape.  ``out``, when given, is a contiguous
     float32 tensor of the result's shape on the volume's device; the result
-    is written into it and it is returned.  All tensors are float32,
-    contiguous and on one device.  ``affine_resample.launches`` counts the
+    is written into it and it is returned.  All tensors are float32 and on
+    one device; the volume is contiguous or row-pitched (:mod:`.layout`),
+    the others contiguous.  ``affine_resample.launches`` counts the
     kernel launches (the CPU path launches nothing)."""
     out_shape = (tuple(volume.shape) if out_shape is None
                  else tuple(int(s) for s in out_shape))
@@ -146,7 +153,8 @@ def affine_resample(volume: torch.Tensor, matrices: torch.Tensor, order: int,
     # call only, so the caller's current device is left as it was
     with torch.cuda.device(volume.device):
         code = lib.affine_resample_launch(
-            volume.data_ptr(), *volume.shape, matrices.data_ptr(), n,
+            volume.data_ptr(), *volume.shape, row_pitch(volume),
+            matrices.data_ptr(), n,
             out.data_ptr(), *out_shape, order, _MODES[mode], float(cval),
             torch.cuda.current_stream().cuda_stream)
     if code != 0:

@@ -3,12 +3,13 @@
 The port's counterpart of ``voltools_tpu/models/projections.py``: rotate a
 resident volume through a series of orientations and integrate along an
 axis to synthesise projections.  The rotations go through the planner
-(:func:`voltools_tpu_torch.kernels.planner.choose_plan`), one envelope per
-chunk of tilts, so a single-axis tilt series runs the slab kernel; the
+(:func:`voltools_tpu_torch.kernels.planner.route`), one envelope per chunk
+of tilts, which gives each chunk to the faster kernel for it; the
 integral is ``torch.sum`` over the projection axis, as the JAX package
 leaves it to XLA.  The tilt stack is resampled in chunks of at most
 ``StaticVolume._BATCH_BYTES_BUDGET`` bytes before the sum (41 tilts of a
-250^3 volume would be 2.56 GB).
+250^3 volume would be 2.56 GB).  The projector's resident volume is
+pitched, as ``StaticVolume``'s (:mod:`..kernels.layout`).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from ..kernels.affine_resample import MAX_BATCH
+from ..kernels.layout import pitched
 from ..ops.interpolation import (AVAILABLE_INTERPOLATIONS, MODES,
                                  needs_prefilter)
 from ..ops.prefilter import bspline_prefilter
@@ -101,11 +103,10 @@ class TiltSeriesProjector:
                         rotation_order, device, mode)
         vol = _as_tensor(data, self._dev)
         if needs_prefilter(interpolation):
-            vol = bspline_prefilter(vol)
+            self.data = pitched(bspline_prefilter(vol))
         else:
             # private copy: later caller mutation must not change results
-            vol = vol.clone(memory_format=torch.contiguous_format)
-        self.data = vol.contiguous()
+            self.data = pitched(vol, copy=True)
 
     def _configure(self, data, interpolation, projection_axis,
                    rotation_order, device, mode):
@@ -134,8 +135,7 @@ class TiltSeriesProjector:
         proj = cls.__new__(cls)
         proj._configure(coefficients, interpolation, projection_axis,
                         rotation_order, device, mode)
-        proj.data = _as_tensor(coefficients, proj._dev).clone(
-            memory_format=torch.contiguous_format)
+        proj.data = pitched(_as_tensor(coefficients, proj._dev), copy=True)
         return proj
 
     def tilt_matrices(self, angles_deg: Sequence[float],

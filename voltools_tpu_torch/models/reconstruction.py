@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..kernels.layout import pitched, pitched_empty
 from ..transforms import _as_tensor, _device, _finish
 from .projections import _norm_axis, plain_project_stack, project_stack
 
@@ -237,7 +238,9 @@ def sirt_reconstruct(projections, matrices, out_shape,
     inverse row and column sums (projections of ones and back-projections
     of ones), zero where a sum is at most 1e-6.  ``nonneg`` clips the
     iterate at 0 after each step; ``initial`` is the starting volume
-    (zeros by default).
+    (zeros by default).  The iterate, like a resident volume, is pitched
+    (:mod:`..kernels.layout`) and updated in place, so the forward sweep's
+    slab kernel reads it with no copy; the result is contiguous.
 
     ``_plain_forward`` runs the forward operator through the kernels' plain
     version on the same device: the reference the kernel path is held
@@ -252,23 +255,22 @@ def sirt_reconstruct(projections, matrices, out_shape,
 
     adjoint = _make_adjoint(minv, keep, out_shape, tuple(projs.shape[1:]))
     eps = 1e-6
-    row_sum = forward(torch.ones(out_shape, dtype=torch.float32, device=dev))
+    row_sum = forward(pitched_empty(out_shape, device=dev).fill_(1.0))
     col_sum = adjoint(torch.ones_like(projs), minv)
     rinv = torch.where(row_sum > eps, 1.0 / row_sum, 0.0)
     cinv = torch.where(col_sum > eps, 1.0 / col_sum, 0.0)
 
     if initial is None:
-        x = torch.zeros(out_shape, dtype=torch.float32, device=dev)
+        x = pitched_empty(out_shape, device=dev).zero_()
     else:
-        x = _as_tensor(initial, dev).clone(
-            memory_format=torch.contiguous_format)
+        x = pitched(_as_tensor(initial, dev), copy=True)
         if tuple(x.shape) != out_shape:
             raise ValueError(
                 f"initial shape {tuple(x.shape)} does not match out_shape "
                 f"{out_shape}")
     for _ in range(iterations):
         resid = (projs - forward(x)) * rinv
-        x = x + relax * cinv * adjoint(resid, minv)
+        x += relax * cinv * adjoint(resid, minv)
         if nonneg:   # projected SIRT: density is non-negative
-            x = torch.clamp_min(x, 0.0)
-    return _result_out(x, output)
+            x.clamp_min_(0.0)
+    return _result_out(x.contiguous(), output)

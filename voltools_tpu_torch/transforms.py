@@ -7,11 +7,13 @@ and ``cval``.
 
 Devices: ``'cuda'`` (the default) and ``'cuda:N'`` run one of the two CUDA
 affine kernels, after the B-spline prefilter for ``filt_bspline*``: the
-slab kernel where :func:`~.kernels.planner.choose_plan` finds that the
-matrix's source box fits its shared-memory budget, the walk kernel
-otherwise.  Both compute the same function, bit for bit.  ``'cpu'`` runs
-the port's plain torch versions and is only taken when asked for.  With no
-CUDA device the default raises.
+slab kernel where :func:`~.kernels.planner.route` finds that the matrix's
+source box fits its shared-memory budget and the slab kernel is the faster
+one for it, the walk kernel otherwise.  Both compute the same function,
+bit for bit.  The slab kernel reads a pitched volume
+(:mod:`~.kernels.layout`); a volume that is not is copied into one first.
+``'cpu'`` runs the port's plain torch versions and is only taken when
+asked for.  With no CUDA device the default raises.
 
 Output semantics (as the JAX package's device paths): inputs are never
 mutated.  By default a host ``numpy.ndarray`` is returned.  Passing
@@ -31,7 +33,8 @@ import torch
 
 from .kernels.affine_resample import affine_resample
 from .kernels.affine_slab import affine_slab
-from .kernels.planner import SMEM_BUDGET, choose_plan, slab_extents
+from .kernels.layout import pitched
+from .kernels.planner import route
 from .ops.interpolation import (AVAILABLE_INTERPOLATIONS, MODES,
                                 needs_prefilter, spline_order)
 from .ops.prefilter import bspline_prefilter
@@ -62,11 +65,13 @@ _LAST_DISPATCH = threading.local()
 def last_dispatch():
     """Diagnostics: how the calling thread's most recent transform was
     served -- ``{'impl': 'cuda'|'torch', 'variant': SlabPlan|None,
-    'reason': str}``.  ``'cuda'`` is a CUDA kernel, ``'torch'`` the plain
-    version on the CPU.  ``variant`` is the planner's
+    'rule': 'box'|'speed', 'reason': str}``.  ``'cuda'`` is a CUDA kernel,
+    ``'torch'`` the plain version on the CPU.  ``variant`` is the planner's
     :class:`~.kernels.planner.SlabPlan` when the slab kernel took the call
-    (or would have, on the CPU), ``None`` for the walk kernel; ``reason``
-    names the kernel and, for the walk kernel, the box that did not fit."""
+    (or would have, on the CPU), ``None`` for the walk kernel; ``rule`` is
+    the planner's rule that picked the kernel (the box rule: the slab kernel
+    cannot take the call; the speed rule: which kernel is faster for it),
+    and ``reason`` names the kernel and the rule's numbers."""
     return getattr(_LAST_DISPATCH, "info", None)
 
 
@@ -131,30 +136,32 @@ def _resample(vol: torch.Tensor, matrices: np.ndarray, interpolation: str,
               mode: str, cval: float, out_shape=None,
               out: torch.Tensor = None) -> torch.Tensor:
     """Resample ``vol`` through host ``matrices`` ((4, 4) or (N, 4, 4)) in
-    one launch of the kernel the planner chooses for them, and note the
-    choice for :func:`last_dispatch`."""
+    one launch of the kernel the planner routes them to, and note the
+    choice for :func:`last_dispatch`.  A CUDA volume that the slab kernel
+    is to read and that is not pitched is copied into a pitched one here,
+    inside the call."""
     out_shape = tuple(vol.shape) if out_shape is None else tuple(out_shape)
     order = spline_order(interpolation)
-    plan = choose_plan(matrices, vol.shape, interpolation, mode, out_shape)
+    plan, rule, why = route(matrices, vol.shape, interpolation, mode,
+                            out_shape)
     mats = _device_matrices(matrices, vol.device)
     if plan is not None:
+        if vol.device.type == "cuda":
+            vol = pitched(vol)
         result = affine_slab(vol, mats, order, mode, cval, out_shape, out,
                              plan=plan)
-        kernel = (f"slab kernel (affine_slab): box {plan.extents}, "
-                  f"{plan.smem_bytes} B of shared memory")
+        kernel = "slab kernel (affine_slab)"
     else:
         result = affine_resample(vol, mats, order, mode, cval, out_shape,
                                  out)
-        extents = slab_extents(matrices, vol.shape, order, out_shape)
-        kernel = (f"walk kernel (affine_resample): the slab box {extents} "
-                  f"needs {4 * int(np.prod(extents))} B, over the "
-                  f"{SMEM_BUDGET} B budget")
+        kernel = "walk kernel (affine_resample)"
+    kernel = f"{kernel} by the {rule} rule: {why}"
     if vol.device.type == "cuda":
-        _LAST_DISPATCH.info = dict(impl="cuda", variant=plan,
+        _LAST_DISPATCH.info = dict(impl="cuda", variant=plan, rule=rule,
                                    reason=f"CUDA {kernel}")
     else:
         _LAST_DISPATCH.info = dict(
-            impl="torch", variant=plan,
+            impl="torch", variant=plan, rule=rule,
             reason=f"plain torch sampler (device='cpu') in place of the "
                    f"{kernel}")
     return result
@@ -210,7 +217,7 @@ def affine(volume,
     if isinstance(output, np.ndarray):
         _check_shape(output.shape, out_shape)
 
-    timer = ProfileTimer() if profile else None
+    timer = ProfileTimer(dev) if profile else None
     if timer:
         timer.__enter__()
     try:

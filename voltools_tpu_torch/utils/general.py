@@ -91,18 +91,27 @@ class ProfileTimer:
     """Wall-clock bracket that prints in the reference's format
     ('transform finished in X.XXXms', reference ``transforms.py:157,219``).
 
-    CUDA work is asynchronous, so the bracket synchronizes the device on
-    entry and exit: the printed time covers execution, not the enqueue."""
+    CUDA work is asynchronous, so the bracket synchronizes ``device`` (the
+    call's device; ``None``: the current CUDA device) on entry and exit:
+    the printed time covers execution there, not the enqueue.  A CPU
+    device needs no synchronisation."""
+
+    def __init__(self, device=None):
+        self.device = None if device is None else torch.device(device)
+
+    def _synchronize(self):
+        if self.device is not None and self.device.type != "cuda":
+            return
+        if torch.cuda.is_available():
+            torch.cuda.synchronize(self.device)
 
     def __enter__(self):
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+        self._synchronize()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+        self._synchronize()
         elapsed_ms = (time.perf_counter() - self._t0) * 1000.0
         print(f"transform finished in {elapsed_ms:.3f}ms")
         return False

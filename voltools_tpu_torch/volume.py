@@ -3,8 +3,12 @@
 The port's counterpart of ``voltools_tpu/volume.py``: upload once, prefilter
 once (for ``filt_bspline*``), then every transform ships only a 4x4 matrix
 to the device and launches a CUDA affine kernel on the resident tensor:
-the slab kernel where the planner finds its box fits, the walk kernel
-otherwise (:func:`voltools_tpu_torch.transforms._resample`).
+the slab kernel where the planner finds its box fits and it is the faster
+kernel, the walk kernel otherwise
+(:func:`voltools_tpu_torch.transforms._resample`).  The resident volume is
+pitched (:mod:`voltools_tpu_torch.kernels.layout`): its rows start every
+multiple of 4 floats, as the slab kernel's TMA copies need, and the walk
+kernel and the plain version read the same buffer.
 
 * ``affine(output=<tensor>)`` writes into a preallocated float32 tensor of
   the volume's shape on the volume's device, in place: the torch form of
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from .kernels.affine_resample import MAX_BATCH
+from .kernels.layout import pitched
 from .ops.interpolation import (AVAILABLE_INTERPOLATIONS, MODES,
                                 needs_prefilter)
 from .ops.prefilter import BOUNDARIES, bspline_prefilter
@@ -65,12 +70,12 @@ class StaticVolume:
         self._autotune = autotune
         vol = _as_tensor(data, self._dev)
         if needs_prefilter(interpolation):
-            vol = bspline_prefilter(vol, boundary=prefilter_boundary)
+            self.data = pitched(bspline_prefilter(
+                vol, boundary=prefilter_boundary))
         else:
             # private copy: later caller mutation of the input must not
             # change results
-            vol = vol.clone(memory_format=torch.contiguous_format)
-        self.data = vol.contiguous()
+            self.data = pitched(vol, copy=True)
 
     def _configure(self, data, interpolation, device, mode, cval):
         if data.ndim != 3:
@@ -95,8 +100,7 @@ class StaticVolume:
         sv = cls.__new__(cls)
         sv._configure(coefficients, interpolation, device, mode, cval)
         sv._autotune = None
-        sv.data = _as_tensor(coefficients, sv._dev).clone(
-            memory_format=torch.contiguous_format)
+        sv.data = pitched(_as_tensor(coefficients, sv._dev), copy=True)
         return sv
 
     def _resample(self, matrices: np.ndarray, out=None) -> torch.Tensor:
@@ -120,7 +124,7 @@ class StaticVolume:
         if isinstance(output, np.ndarray):
             _check_shape(output.shape, self.shape)
         transform_m = np.asarray(transform_m, dtype=np.float32)
-        timer = ProfileTimer() if profile else None
+        timer = ProfileTimer(self._dev) if profile else None
         if timer:
             timer.__enter__()
         try:
@@ -155,7 +159,7 @@ class StaticVolume:
         vol_bytes = 4 * int(np.prod(self.shape))
         chunk = max(1, min(MAX_BATCH, self._BATCH_BYTES_BUDGET // vol_bytes))
 
-        timer = ProfileTimer() if profile else None
+        timer = ProfileTimer(self._dev) if profile else None
         if timer:
             timer.__enter__()
         try:
