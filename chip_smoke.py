@@ -12,14 +12,24 @@ It imports torch, numpy, scipy and the port only (never JAX, never
 1. card   -- the ``nvidia-smi`` name and power limit, torch, CUDA and nvcc
    versions;
 2. build  -- ``nvcc`` builds both kernels, ``csrc/affine_resample.cu`` (the
-   walk port, A) and ``csrc/affine_slab.cu`` (the slab port, B), in
-   parallel, each timed, with registers and spills;
-3. parity -- A against its plain torch version on the card: order {1, 3} x
-   mode {constant, border} x cval {0, 1.5}, random 'sxyz' rotations about
-   size/2 plus a translate, a scale and a shear, on 250^3, (40, 48, 56) and
+   walk port, A: warp patches, a cubic interior fast path and float4 rows)
+   and ``csrc/affine_slab.cu`` (the slab port, B), in parallel, each
+   timed, with registers and spills;
+3. parity -- A against its plain torch version on the card, bit for bit
+   (``torch.equal``; and atol 5e-5 off knife edges, as before): order {1,
+   3} x mode {constant, border} x cval {0, 1.5}, on 250^3, (40, 48, 56) and
    shapes with an extent of 1, each on the contiguous and the pitched
-   volume (``torch.equal``); a batch of 16 and a write into a preallocated
-   tensor.  atol 5e-5 off knife edges;
+   volume and both of A's warp patches, over two sets: random 'sxyz'
+   rotations about size/2 plus a translate, a scale and a shear, and a
+   near-edge set (identity, whole- and half-voxel translations, a scale
+   just off 1, rotations by 90 and 3 degrees about the centre) whose warps
+   reach the edges and knife edges, so that both of A's cubic paths (the
+   interior fast path and the edge path) are held against the plain
+   version: A counts on the device the in-range voxels that took its fast
+   path; per case they must not exceed the in-range voxels of the plain
+   version's coordinates, trilinear must count none, and over the phase
+   some but not all of cubic's in-range voxels must take it; a batch of 16
+   and a write into a preallocated tensor;
 4. parity_slab -- B against its plain version (atol 5e-5 off knife edges)
    and against A (``torch.equal``: the two share their per-voxel
    arithmetic), order x mode x cval as above, on pitched volumes (widths
@@ -48,12 +58,20 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    ``scipy.ndimage.affine_transform(...).sum(axis=0)``; WBP and SIRT
    against the same functions with the plain forward;
 7. times  -- CUDA-event times after warm-up of B and A on the same
-   matrices (the tilt series and the 16 random rotations, single and
-   batched, linear and cubic), of the kernels as the planner routes each
+   matrices (the projector's and the reconstruction's tilt series and the
+   16 random rotations, single and batched, linear and cubic; A with the
+   warp patch the planner picks, and the share of its in-range voxels on
+   the interior fast path, as A counted them on the device), of the
+   kernels as the planner routes each
    matrix, and the planner's choice and box voxels per output voxel for
-   each set (the ``planner_choice`` line: whether the routed time is within
-   5% of the faster of A alone and B wherever its box fits, reported and
-   not checked, as no time is); ``StaticVolume.affine`` per rotation, the
+   each set, one matrix a launch and as the path launches it, in chunks
+   (the ``planner_choice`` line: whether the routed time is within 5% of
+   the faster of A alone and B wherever its box fits, reported and not
+   checked, as no time is); both kernels one matrix at a time beside
+   B's box voxels per output voxel, the data of the planner's speed rule
+   (the ``speed_rule_sweep`` line); the host's time per call of the
+   planner's ``route`` and ``walk_patch``; ``StaticVolume.affine`` per
+   rotation, the
    prefilters, the
    one-shot calls, the pitched copy, the projector, WBP and SIRT, and the
    plain versions, beside each kernel's bound (the larger of its bytes over
@@ -166,6 +184,23 @@ def matrix_set(np, transform_matrix, shape, seed):
     return np.stack(ms).astype(np.float32)
 
 
+def near_edge_set(np, transform_matrix, translation_matrix, shape):
+    """Matrices whose source points reach the volume's edges and knife
+    edges: the identity, whole- and half-voxel translations, a scale just
+    off 1 and rotations by 90 and 3 degrees about the centre."""
+    center = tuple((s - 1) / 2 for s in shape)
+    return np.stack([
+        np.eye(4),
+        translation_matrix((1.0, 0.0, -1.0)),
+        translation_matrix((0.5, -0.5, 0.25)),
+        transform_matrix(scale=(1.02, 0.98, 1.01), center=center),
+        transform_matrix(rotation=(90, 0, 0), rotation_order="rzxz",
+                         center=center),
+        transform_matrix(rotation=(3, 2, 1), rotation_order="sxyz",
+                         center=center),
+    ]).astype(np.float32)
+
+
 def pallas_cases(np, transform_matrix, translation_matrix, center):
     """The CASES of tests/test_pallas.py about ``center``."""
     return np.stack([
@@ -195,9 +230,11 @@ def tilt_series(np, transform_matrix, shape, axis):
     return np.stack(ms).astype(np.float32)
 
 
-def time_ms(torch, fn, reps, warmup=2):
-    """Mean device time of ``fn`` over ``reps`` back-to-back runs."""
-    for _ in range(warmup):
+def time_ms(torch, fn, reps, warmup=None):
+    """Mean device time of ``fn`` over ``reps`` back-to-back runs, after
+    ``warmup`` runs (as many as ``reps``, at least 2, unless given: the
+    card's clocks rise under load)."""
+    for _ in range(max(2, reps) if warmup is None else warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -210,15 +247,19 @@ def time_ms(torch, fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def inside_voxels(torch, vt, shape, mats):
+def inside_voxels(torch, vt, shape, mats, mode="constant"):
     """Output voxels per matrix whose source point lies inside the volume
-    ('constant' mode), from the coordinates the kernels compute."""
+    by ``mode``'s test ('constant': [0, n - 1]; 'border': more than half a
+    voxel inside), from the coordinates the kernels compute."""
     counts = []
     for m in mats:
         s = vt.ops.affine_coords(shape, m)
         inside = torch.ones(shape, dtype=torch.bool, device=s.device)
         for a in range(3):
-            inside &= (s[a] >= 0) & (s[a] <= shape[a] - 1)
+            if mode == "constant":
+                inside &= (s[a] >= 0) & (s[a] <= shape[a] - 1)
+            else:
+                inside &= (s[a] > -0.5) & (s[a] < shape[a] - 0.5)
         counts.append(int(inside.sum()))
     return counts
 
@@ -261,7 +302,8 @@ def main():
     from voltools_tpu_torch.kernels import affine_slab as S
     from voltools_tpu_torch.kernels import planner
     from voltools_tpu_torch.kernels.layout import pitched
-    from voltools_tpu_torch.kernels.planner import choose_plan, slab_plan
+    from voltools_tpu_torch.kernels.planner import (choose_plan, slab_plan,
+                                                    walk_patch)
     from voltools_tpu_torch.models import (TiltSeriesProjector,
                                            sirt_reconstruct,
                                            wbp_reconstruct)
@@ -317,33 +359,69 @@ def main():
     rng = np.random.default_rng(1)
     worst = {1: 0.0, 3: 0.0}
     worst_all = 0.0
+    # A's in-range voxels, and those on its fast path, per order
+    path_totals = {1: [0, 0], 3: [0, 0]}
     shapes = [(SIZE,) * 3, PALLAS_SHAPE, (1, 64, 80), (37, 1, 29)]
     for shape in shapes:
         vol = torch.from_numpy(rng.random(shape).astype(np.float32)).to(dev)
         pvol = pitched(vol, copy=True)
-        ms = matrix_set(np, transform_matrix, shape, seed=shape[0])
-        ms_dev = torch.from_numpy(ms).to(dev)
-        for order in (1, 3):
-            for mode in ("constant", "border"):
-                for cval in (0.0, 1.5):
-                    errs = []
-                    for i in range(len(ms)):
-                        got = walk(vol, ms_dev[i], order, mode, cval)
-                        assert torch.equal(got, walk(pvol, ms_dev[i], order,
-                                                     mode, cval)), \
-                            (shape, order, mode, cval, i, "pitched A")
-                        want = affine_sample(vol, ms_dev[i], interp_of[order],
-                                             mode, cval, prefiltered=True)
-                        off, every = errors(torch, got, want, ms[i])
-                        errs.append(off)
-                        worst[order] = max(worst[order], off)
-                        worst_all = max(worst_all, every)
-                        assert off <= ATOL, (shape, order, mode, cval, i, off)
-                    torch.cuda.synchronize()
-                    emit("parity", kernel=K.NAME, shape=list(shape),
-                         order=order, mode=mode, cval=cval,
-                         pitch=pvol.stride(1), equal_on_pitched=True,
-                         max_abs_err=errs, atol=ATOL)
+        for set_name, ms in (
+                ("random_set", matrix_set(np, transform_matrix, shape,
+                                          seed=shape[0])),
+                ("near_edge", near_edge_set(np, transform_matrix,
+                                            translation_matrix, shape))):
+            ms_dev = torch.from_numpy(ms).to(dev)
+            patches = (K.FLAT_PATCH, K.DEEP_PATCH)
+            in_range = {mode: sum(inside_voxels(torch, vt, shape, ms_dev,
+                                                mode))
+                        for mode in ("constant", "border")}
+            for order in (1, 3):
+                for mode in ("constant", "border"):
+                    for cval in (0.0, 1.5):
+                        errs = []
+                        K.reset_fast_path_voxels(dev)
+                        for i in range(len(ms)):
+                            want = affine_sample(vol, ms_dev[i],
+                                                 interp_of[order], mode,
+                                                 cval, prefiltered=True)
+                            # both warp patches, the contiguous and the
+                            # pitched volume, bit for bit
+                            for p in patches:
+                                for v in (vol, pvol):
+                                    got = walk(v, ms_dev[i], order, mode,
+                                               cval, patch=p)
+                                    assert torch.equal(got, want), (
+                                        shape, set_name, order, mode, cval,
+                                        i, p, v.stride(1), "A != plain")
+                            off, every = errors(torch, got, want, ms[i])
+                            errs.append(off)
+                            worst[order] = max(worst[order], off)
+                            worst_all = max(worst_all, every)
+                            assert off <= ATOL, (shape, order, mode, cval, i,
+                                                 off)
+                        # the device's count over the 2 patches x 2
+                        # layouts, against their in-range voxels
+                        fast = K.fast_path_voxels(dev)
+                        total = 4 * in_range[mode]
+                        assert fast <= total, (shape, set_name, order, mode,
+                                               fast, total)
+                        assert order == 3 or fast == 0, (order, fast)
+                        path_totals[order][0] += fast
+                        path_totals[order][1] += total
+                        emit("parity", kernel=K.NAME, set=set_name,
+                             shape=list(shape), order=order, mode=mode,
+                             cval=cval, pitch=pvol.stride(1),
+                             patches=[list(p) for p in patches],
+                             equal_on_pitched=True, equal_to_plain=True,
+                             fast_path_voxels=fast, in_range_voxels=total,
+                             fast_path_share=fast / max(total, 1),
+                             max_abs_err=errs,
+                             atol=ATOL)
+    # both of A's cubic paths ran on the cases held against the plain
+    # version, as the device counted them
+    assert 0 < path_totals[3][0] < path_totals[3][1], path_totals
+    emit("parity_paths", kernel=K.NAME, fast_path_and_in_range_voxels={
+        "linear": path_totals[1], "cubic": path_totals[3]})
 
     vol = torch.from_numpy(rng.random((SIZE,) * 3).astype(np.float32)).to(dev)
     ms = np.stack([matrix_set(np, transform_matrix, (SIZE,) * 3, seed=s)[:2]
@@ -642,7 +720,9 @@ def main():
     stack = torch.empty((len(tms),) + big, device=dev)
     t = {}
     choices = {}
-    sets = {"tilt": tms, "random": rots}
+    # the projector's tilt series, the reconstruction's and bench.py's
+    # rotations
+    sets = {"tilt": tms, "recon_tilt": rms, "random": rots}
     for set_name, ms in sets.items():
         ms_dev = torch.from_numpy(ms).to(dev)
         inside = inside_voxels(torch, vt, big, ms_dev)
@@ -650,6 +730,8 @@ def main():
                                                           * SIZE ** 3)
         for order, name in ((1, "linear"), (3, "cubic")):
             plans = [plan_of(m, big, order) for m in ms]
+            # A's warp patch for each matrix, as the planner picks it
+            patches = [walk_patch(m) for m in ms]
             fit = [i for i, p in enumerate(plans) if p is not None]
             route = [routed(m, big, order) for m in ms]
             state = {"i": 0}
@@ -661,12 +743,14 @@ def main():
 
             def one_walk():
                 i = fit[state["i"] % len(fit)]
-                walk(coef[order], ms_dev[i], order, out=out)
+                walk(coef[order], ms_dev[i], order, out=out,
+                     patch=patches[i])
                 state["i"] += 1
 
             def every_walk():
-                walk(coef[order], ms_dev[state["i"] % len(ms)], order,
-                     out=out)
+                i = state["i"] % len(ms)
+                walk(coef[order], ms_dev[i], order, out=out,
+                     patch=patches[i])
                 state["i"] += 1
 
             def as_routed():
@@ -676,7 +760,8 @@ def main():
                     slab(coef[order], ms_dev[i], order, out=out,
                          plan=route[i])
                 else:
-                    walk(coef[order], ms_dev[i], order, out=out)
+                    walk(coef[order], ms_dev[i], order, out=out,
+                         patch=patches[i])
                 state["i"] += 1
 
             def box_rule_only():
@@ -686,10 +771,22 @@ def main():
                     slab(coef[order], ms_dev[i], order, out=out,
                          plan=plans[i])
                 else:
-                    walk(coef[order], ms_dev[i], order, out=out)
+                    walk(coef[order], ms_dev[i], order, out=out,
+                         patch=patches[i])
                 state["i"] += 1
 
             key = f"{set_name}_{name}"
+            # A's interior fast path on this set, one launch a matrix, as
+            # the device counted it
+            K.reset_fast_path_voxels(dev)
+            for _ in ms:
+                every_walk()
+            fast = K.fast_path_voxels(dev)
+            assert fast <= sum(inside) and (order == 3 or fast == 0), (
+                key, fast)
+            t[f"{key}_walk_fast_path_share"] = fast / sum(inside)
+            t[f"{key}_walk_deep_patch_matrices"] = sum(
+                p == K.DEEP_PATCH for p in patches)
             t[f"{key}_on_slab"] = len(fit)
             t[f"{key}_routed_to_slab"] = sum(p is not None for p in route)
             t[f"{key}_box_per_voxel"] = [p.box_per_voxel for p in plans
@@ -718,6 +815,41 @@ def main():
                 "routed_ms": t[f"{key}_routed_ms"],
                 "planner_within_5pct_of_faster":
                     t[f"{key}_routed_ms"] <= 1.05 * fastest}
+            # the same set as the path launches it (the tilt series in
+            # chunks, the random set in one launch): A alone, B alone where
+            # every chunk's box fits, and each chunk on the kernel the
+            # planner routes it to
+            groups = [(torch.from_numpy(c).to(dev), plan_of(c, big, order),
+                       routed(c, big, order), walk_patch(c))
+                      for c in chunks_of(ms)]
+
+            def batched(kind):
+                for c_dev, plan, route_plan, patch in groups:
+                    dst = stack[:len(c_dev)]
+                    if kind == "slab" or kind == "routed" and route_plan:
+                        slab(coef[order], c_dev, order, out=dst,
+                             plan=plan if kind == "slab" else route_plan)
+                    else:
+                        walk(coef[order], c_dev, order, out=dst,
+                             patch=patch)
+
+            by_kind = {kind: time_ms(torch, lambda: batched(kind), reps=3)
+                       / len(ms) for kind in ("walk", "routed")}
+            by_kind["slab"] = None if any(
+                g[1] is None for g in groups) else time_ms(
+                    torch, lambda: batched("slab"), reps=3) / len(ms)
+            n_slab = sum(g[2] is not None for g in groups)
+            choices[f"{key}_batched"] = {
+                "chunks": [len(g[0]) for g in groups],
+                "planner": ("slab" if n_slab == len(groups) else
+                            "walk" if n_slab == 0 else
+                            f"slab {n_slab} of {len(groups)}"),
+                "box_per_voxel": [g[1] and g[1].box_per_voxel
+                                  for g in groups],
+                "walk_ms": by_kind["walk"], "slab_ms": by_kind["slab"],
+                "routed_ms": by_kind["routed"],
+                "planner_within_5pct_of_faster": by_kind["routed"] <= 1.05
+                * min(v for v in by_kind.values() if v is not None)}
             fit_in = [inside[i] for i in fit]
             t[f"{key}_bound_ms"], t[f"{key}_bound_by"] = bound_ms(
                 order, big, big, fit_in, per_launch=1)
@@ -725,7 +857,8 @@ def main():
             envelope = plan_of(ms, big, order)
             dst = stack[:len(ms)]
             t[f"{key}_batch_walk_ms_per_matrix"] = time_ms(
-                torch, lambda: walk(coef[order], ms_dev, order, out=dst),
+                torch, lambda: walk(coef[order], ms_dev, order, out=dst,
+                                    patch=walk_patch(ms)),
                 reps=3) / len(ms)
             t[f"{key}_batch_slab_ms_per_matrix"] = None if envelope is None \
                 else time_ms(torch, lambda: slab(coef[order], ms_dev, order,
@@ -758,14 +891,49 @@ def main():
                 align_corners=True), reps=20)
         del coords, grid
     del stack
+    # the speed rule's data: A and B one matrix at a time on both tilt
+    # series and the random set, beside B's box voxels per output voxel
+    # (matrices whose box fits B)
+    sweep = {}
+    for set_name, ms in (("tilt_axis_1", tms), ("tilt_axis_0", rms),
+                         ("random", rots)):
+        ms_dev = torch.from_numpy(ms).to(dev)
+        for order, name in ((1, "linear"), (3, "cubic")):
+            rows = []
+            for i, m in enumerate(ms):
+                plan = plan_of(m, big, order)
+                if plan is None:
+                    continue
+                patch = walk_patch(m)
+                a = time_ms(torch, lambda: walk(
+                    coef[order], ms_dev[i], order, out=out, patch=patch),
+                    reps=5)
+                b = time_ms(torch, lambda: slab(
+                    coef[order], ms_dev[i], order, out=out, plan=plan),
+                    reps=5)
+                rows.append([plan.box_per_voxel, a, b])
+            sweep[f"{set_name}_{name}"] = sorted(rows)
+    emit("speed_rule_sweep", columns=["box_per_voxel", "walk_ms", "slab_ms"],
+         sets=sweep)
     emit("planner_choice", rule={
-        # an open end of the window reads null
-        "slab_window": {str(k): [x if x != float("inf") else None
-                                 for x in v]
+        # an order the slab kernel never takes reads null
+        "slab_window": {str(k): v and v._asdict()
                         for k, v in planner.SLAB_WINDOW.items()},
         "smem_budget": planner.SMEM_BUDGET, "stages": planner.STAGES,
         "brick": {str(k): list(v) for k, v in planner.BRICK.items()}},
          sets=choices)
+    # the planner's host work per call, as StaticVolume.affine makes it:
+    # route (the box and speed rules) and walk_patch on one rotation
+    reps = 2000
+    for order, name in ((1, "linear"), (3, "cubic")):
+        t0 = time.perf_counter()
+        for i in range(reps):
+            planner.route(rots[i % N_ROT], big, interp_of[order])
+        t[f"planner_route_{name}_us"] = (time.perf_counter() - t0) / reps * 1e6
+    t0 = time.perf_counter()
+    for i in range(reps):
+        walk_patch(rots[i % N_ROT])
+    t["walk_patch_us"] = (time.perf_counter() - t0) / reps * 1e6
     # the main path's end-to-end metric: StaticVolume.affine per rotation,
     # through the planner
     for order, name, sv in ((1, "linear", sv_lin), (3, "cubic", sv_cub)):
@@ -798,20 +966,23 @@ def main():
     t["pitched_copy_ms"] = time_ms(
         torch, lambda: pitched(vol_dev, copy=True), reps=5)
     rots_dev = torch.from_numpy(rots).to(dev)
-    state = {"i": 0}
+    rot_patches = [walk_patch(m) for m in rots]
+    # linear on the raw volume, cubic on its coefficients: the contiguous
+    # 250-wide copy is read a float at a time, the pitched one with
+    # float4 cubic rows
+    for order, name, pitched_vol in ((1, "linear", sv_lin.data),
+                                     (3, "cubic", sv_cub.data)):
+        for layout, v in (("contiguous", pitched_vol.contiguous()),
+                          ("pitched", pitched_vol)):
+            state = {"i": 0}
 
-    def walk_contiguous():
-        walk(vol_dev, rots_dev[state["i"] % N_ROT], 1, out=out)
-        state["i"] += 1
+            def walk_layout(v=v, order=order):
+                i = state["i"] % N_ROT
+                walk(v, rots_dev[i], order, out=out, patch=rot_patches[i])
+                state["i"] += 1
 
-    def walk_pitched():
-        walk(sv_lin.data, rots_dev[state["i"] % N_ROT], 1, out=out)
-        state["i"] += 1
-
-    t["random_linear_walk_contiguous_ms"] = time_ms(torch, walk_contiguous,
-                                                    reps=2 * N_ROT)
-    t["random_linear_walk_pitched_ms"] = time_ms(torch, walk_pitched,
-                                                 reps=2 * N_ROT)
+            t[f"random_{name}_walk_{layout}_ms"] = time_ms(
+                torch, walk_layout, reps=2 * N_ROT)
     t["prefilter_mirror_ms"] = time_ms(
         torch, lambda: bspline_prefilter(vol_dev), reps=5)
     t["prefilter_clamp_ms"] = time_ms(
@@ -834,17 +1005,20 @@ def main():
         "launches_by_path": {"main": main_launches[S.NAME],
                              "tilt": tilt_launches[S.NAME]},
         "max_abs_err": max(slab_worst[1], slab_worst[3]),
-        "ms": t["tilt_linear_slab_ms"], "plain_ms": t["tilt_linear_plain_ms"],
-        "bound_ms": t["tilt_linear_bound_ms"],
-        "bound_by": t["tilt_linear_bound_by"],
-        "library_ms": t["tilt_grid_sample_trilinear_ms"],
-        "shape": list(big), "matrices": "41-tilt series, linear, one per "
-        "launch", "max_abs_err_all_voxels": slab_worst_all,
+        "ms": t["recon_tilt_linear_batch_slab_ms_per_matrix"],
+        "plain_ms": t["recon_tilt_linear_plain_ms"],
+        "bound_ms": t["recon_tilt_linear_batch_bound_ms_per_matrix"],
+        "bound_by": t["recon_tilt_linear_batch_bound_by"],
+        "library_ms": t["recon_tilt_grid_sample_trilinear_ms"],
+        "shape": list(big), "matrices": "the reconstruction's 41-tilt "
+        "series, linear, in one launch, per matrix (the launches it takes)",
+        "max_abs_err_all_voxels": slab_worst_all,
         "equal_to_walk": True, "overflows": S.overflows(dev),
-        "walk_same_matrices_ms": t["tilt_linear_walk_same_ms"],
-        "batch_ms_per_matrix": t["tilt_linear_batch_slab_ms_per_matrix"],
-        "batch_bound_ms_per_matrix":
-            t["tilt_linear_batch_bound_ms_per_matrix"],
+        "walk_same_matrices_ms":
+            t["recon_tilt_linear_batch_walk_ms_per_matrix"],
+        "single_ms": t["tilt_linear_slab_ms"],
+        "single_bound_ms": t["tilt_linear_bound_ms"],
+        "walk_single_same_matrices_ms": t["tilt_linear_walk_same_ms"],
         "cubic": {"ms": t["tilt_cubic_slab_ms"],
                   "plain_ms": t["tilt_cubic_plain_ms"],
                   "bound_ms": t["tilt_cubic_bound_ms"],
@@ -866,10 +1040,14 @@ def main():
         "library_ms": t["random_grid_sample_trilinear_ms"],
         "shape": list(big), "matrices": "16 random 'sxyz' rotations, "
         "linear, one per launch", "max_abs_err_all_voxels": worst_all,
+        "equal_to_plain": True,
+        "tilt_ms": t["tilt_linear_walk_ms"],
         "batch_ms_per_matrix": t["random_linear_batch_walk_ms_per_matrix"],
         "batch_bound_ms_per_matrix":
             t["random_linear_batch_bound_ms_per_matrix"],
         "cubic": {"ms": t["random_cubic_walk_ms"],
+                  "tilt_ms": t["tilt_cubic_walk_ms"],
+                  "fast_path_share": t["random_cubic_walk_fast_path_share"],
                   "plain_ms": t["random_cubic_plain_ms"],
                   "bound_ms": t["random_cubic_walk_bound_ms"],
                   "bound_by": t["random_cubic_walk_bound_by"],

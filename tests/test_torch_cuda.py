@@ -15,7 +15,11 @@ torch = pytest.importorskip("torch")
 import numpy as np
 
 import voltools_tpu_torch as vt
-from voltools_tpu_torch.kernels.affine_resample import affine_resample
+from voltools_tpu_torch.kernels.affine_resample import (DEEP_PATCH,
+                                                        FLAT_PATCH,
+                                                        affine_resample,
+                                                        fast_path_voxels,
+                                                        reset_fast_path_voxels)
 from voltools_tpu_torch.kernels.affine_slab import (affine_slab,
                                                     blocks_per_sm, overflows)
 from voltools_tpu_torch.kernels.layout import pitched, tma_ready
@@ -345,3 +349,108 @@ def test_slab_boxes_past_both_ends_of_the_volume(dev, order, mode):
     for i in range(len(ms)):
         _slab_equals_walk(vol, ms[i], order, mode, 0.5)
     _slab_equals_walk(vol, ms, order, mode, 0.5)
+
+
+def near_edge_matrices(shape):
+    """Matrices whose source points reach the edges and knife edges (the
+    identity, whole- and half-voxel translations, a scale just off 1,
+    rotations by 90 and 3 degrees about the centre), a tilt and a rotation
+    mixing all three axes."""
+    center = tuple((s - 1) / 2 for s in shape)
+    return np.stack([
+        np.eye(4), translation_matrix((1.0, 0.0, -1.0)),
+        translation_matrix((0.5, -0.5, 0.25)),
+        transform_matrix(scale=(1.02, 0.98, 1.01), center=center),
+        transform_matrix(rotation=(90, 0, 0), rotation_order="rzxz",
+                         center=center),
+        transform_matrix(rotation=(3, 2, 1), rotation_order="sxyz",
+                         center=center),
+        transform_matrix(rotation=(0, 30, 0), rotation_order="rzxz",
+                         center=center),
+        transform_matrix(rotation=(40, 50, 60), rotation_order="sxyz",
+                         center=center)]).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape,out_shape", [
+    ((23, 29, 31), None), ((17, 21, 32), None), ((1, 9, 10), None),
+    ((6, 1, 141), None), ((40, 48, 56), None), ((23, 29, 31), (9, 33, 17))])
+@pytest.mark.parametrize("patch", [FLAT_PATCH, DEEP_PATCH])
+@pytest.mark.parametrize("order", [1, 3])
+def test_walk_paths_equal_the_plain_version_and_the_slab_kernel(
+        dev, shape, out_shape, patch, order):
+    """Near-edge and knife-edge matrices, both warp patches, ragged shapes,
+    contiguous widths of 4k + 3, 4k + 1 and 4k, and the pitched volume
+    (float4 cubic rows): the walk kernel's fast and edge paths equal the
+    plain version, and the slab kernel where its box fits, bit for bit."""
+    vol = torch.from_numpy(np.random.default_rng(sum(shape)).random(
+        shape).astype(np.float32)).to(dev)
+    pvol = pitched(vol, copy=True)
+    ms = near_edge_matrices(shape)
+    ms_dev = torch.from_numpy(ms).to(dev)
+    interp = "linear" if order == 1 else "bspline"
+    out = tuple(shape if out_shape is None else out_shape)
+    for mode in ("constant", "border"):
+        for cval in (0.0, 1.5):
+            got = affine_resample(vol, ms_dev, order, mode, cval, out,
+                                  patch=patch)
+            assert torch.equal(got, affine_resample(
+                pvol, ms_dev, order, mode, cval, out, patch=patch))
+            for i in range(len(ms)):
+                want = affine_sample(vol, ms_dev[i], interp, mode, cval,
+                                     prefiltered=True, out_shape=out)
+                assert torch.equal(got[i], want), (mode, cval, i)
+                plan = slab_plan(ms[i], shape, interp, mode, out)
+                if plan is not None:
+                    assert torch.equal(affine_slab(
+                        pvol, ms_dev[i], order, mode, cval, out,
+                        plan=plan), got[i]), (mode, cval, i, "slab")
+
+
+@pytest.mark.parametrize("patch", [FLAT_PATCH, DEEP_PATCH])
+def test_walk_takes_both_paths_on_near_edge_and_random_sets(dev, patch):
+    """The cases above reach both of the walk kernel's cubic paths, as the
+    kernel counts them on the device: the near-edge set has warps on the
+    edge path, random rotations have warps on the fast path.  Per launch
+    the count of in-range voxels on the fast path equals that of the
+    kernel's thread mapping and warp vote emulated on the host (trilinear:
+    none), on the contiguous and the pitched volume."""
+    from test_torch_walk_design import warp_path_counts
+
+    shape = (40, 48, 56)
+    vol = torch.rand(shape, device=dev)
+    pvol = pitched(vol, copy=True)
+    sets = {"near": near_edge_matrices(shape),
+            "random": matrices(shape, seed=7).numpy()}
+    fast_share = {}
+    for name, ms in sets.items():
+        for order in (1, 3):
+            for mode in ("constant", "border"):
+                fast = edge = 0
+                for m in ms:
+                    want = warp_path_counts(shape, m, order, shape, patch,
+                                            mode)
+                    for v in (vol, pvol):
+                        reset_fast_path_voxels(dev)
+                        affine_resample(v, torch.from_numpy(m).to(dev),
+                                        order, mode, patch=patch)
+                        assert fast_path_voxels(dev) == want[0], (
+                            name, order, mode)
+                    fast += want[0]
+                    edge += want[1]
+                if order == 3 and mode == "constant":
+                    fast_share[name] = fast / (fast + edge)
+    assert fast_share["near"] < 1.0
+    assert fast_share["random"] > 0.5
+
+
+def test_walk_takes_matrices_off_16_byte_boundaries(dev):
+    """The kernel reads a matrix row as one 16-byte load: a matrix that
+    starts 4 bytes past a boundary is copied first, with the same result."""
+    vol = torch.rand((11, 12, 13), device=dev)
+    flat = torch.zeros(40, device=dev)
+    m = flat[1:17].view(4, 4)
+    m.copy_(matrices((11, 12, 13), seed=3)[0].to(dev))
+    assert m.data_ptr() % 16 == 4 and m.is_contiguous()
+    for order in (1, 3):
+        assert torch.equal(affine_resample(vol, m, order),
+                           affine_resample(vol, m.clone(), order))

@@ -128,6 +128,7 @@ def _bad_arguments(volume, mats):
         "out aliases volume": dict(out=volume),
         "meta tensors": dict(volume=volume.to("meta"),
                              matrices=mats[0].to("meta")),
+        "line warp patch": dict(patch=(1, 1, 32)),
     }
 
 

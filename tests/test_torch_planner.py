@@ -36,7 +36,8 @@ import os
 from voltools_tpu_torch.kernels import _build
 from voltools_tpu_torch.kernels.planner import (BRICK, MAX_BOX, SLAB_WINDOW,
                                                 SLACK, SMEM_BUDGET, STAGES,
-                                                SlabPlan, choose_plan, route,
+                                                SlabPlan, SlabWindow,
+                                                choose_plan, route,
                                                 slab_extents, slab_plan)
 from voltools_tpu_torch.ops.interpolation import _mirror_index
 from voltools_tpu_torch.ops.sampling import affine_coords
@@ -105,17 +106,30 @@ def test_a_fully_mixing_rotation_takes_the_walk_kernel():
                          center=CENTER)
     for interpolation, order in (("linear", 1), ("filt_bspline", 3)):
         assert choose_plan(m, BIG, interpolation) is None
-        # its box is over the budget: the box rule decides
-        plan, rule, reason = route(m, BIG, interpolation)
-        assert plan is None and rule == "box" and "budget" in reason
         assert 4 * int(np.prod(slab_extents(m, BIG, order))) > SMEM_BUDGET
-    # a milder one fits, and the speed rule decides: trilinear, its box
-    # holds too many source voxels per output voxel for the slab kernel
-    m = transform_matrix(rotation=(30, 20, 10), rotation_order="rzxz",
-                         center=CENTER)
+    # its box is over the budget: the box rule decides a trilinear batch;
+    # one matrix, and cubic, which the slab kernel never takes, are
+    # decided before any plan
+    plan, rule, reason = route(np.stack([m, m]), BIG, "linear")
+    assert plan is None and rule == "box" and "budget" in reason
     plan, rule, reason = route(m, BIG, "linear")
     assert plan is None and rule == "speed" and "outside" in reason
-    assert slab_plan(m, BIG, "linear").box_per_voxel > SLAB_WINDOW[1][1]
+    plan, rule, reason = route(m, BIG, "filt_bspline")
+    assert plan is None and rule == "speed" and "every box size" in reason
+    # a milder one fits, and the speed rule decides: trilinear, one matrix
+    # a launch, or a box of too many source voxels per output voxel, lies
+    # outside the slab kernel's window; cubic takes no slab launch
+    m = transform_matrix(rotation=(30, 20, 10), rotation_order="rzxz",
+                         center=CENTER)
+    for ms in (m, np.stack([m, m])):
+        plan, rule, reason = route(ms, BIG, "linear")
+        assert plan is None and rule == "speed" and "outside" in reason
+    assert slab_plan(m, BIG, "linear").box_per_voxel > \
+        SLAB_WINDOW[1].box_per_voxel
+    assert SLAB_WINDOW[1].matrices > 1
+    plan, rule, reason = route(m, BIG, "bspline")
+    assert plan is None and rule == "speed" and "every box size" in reason
+    assert slab_plan(m, BIG, "bspline") is not None
 
 
 def test_extents_follow_the_span_rule():
@@ -297,6 +311,48 @@ def test_every_tap_lies_in_its_bricks_box(shape, out, angles, single_axis,
     assert_box_rule(m, shape, out, order, mode, extents)
 
 
+@settings(max_examples=60, deadline=None, database=None)
+@given(angles=st.tuples(*[st.floats(-180.0, 180.0)] * 3),
+       scale=st.tuples(*[st.floats(0.5, 2.0)] * 3),
+       shift=st.tuples(offset, offset, offset),
+       brick=st.tuples(st.integers(1, 8), st.integers(1, 8),
+                       st.integers(1, 32)),
+       start=st.tuples(*[st.integers(0, 200)] * 3))
+def test_brick_corners_bound_every_voxels_floor(angles, scale, shift, brick,
+                                               start):
+    """The slab kernel skips the per-voxel box test where the box holds
+    the taps of the brick's corners (affine_slab.cu's Origin::whole): each
+    coordinate, rounded as the kernels round it, is monotone in u, v and w,
+    so floor over the brick's voxels lies between floor over its corners'
+    least and greatest coordinate."""
+    m = np.asarray(rotation_matrix(angles, rotation_order="sxyz"),
+                   np.float64) @ np.diag(list(scale) + [1.0])
+    m[:3, 3] += shift
+    m = torch.from_numpy(m.astype(np.float32))
+    grids = [torch.arange(s, s + b, dtype=torch.float32)
+             for s, b in zip(start, brick)]
+    u, v, w = torch.meshgrid(*grids, indexing="ij")
+    for a in range(3):
+        # affine_coords' order: ((m0*u + m1*v) + m2*w) + m3, one rounding
+        # per operation
+        s = ((m[a, 0] * u + m[a, 1] * v) + m[a, 2] * w) + m[a, 3]
+        corners = torch.stack([s[i, j, k] for i in (0, -1) for j in (0, -1)
+                               for k in (0, -1)])
+        assert torch.floor(s).min() >= torch.floor(corners.min())
+        assert torch.floor(s).max() <= torch.floor(corners.max())
+
+
+def test_slab_kernel_skips_the_box_test_only_for_whole_bricks():
+    text = (_build.CSRC_DIR / "affine_slab.cu").read_text()
+    flat = " ".join(text.split())
+    assert ("const bool fits = last <= lo + (a == 0 ? e[0] : a == 1 ? e[1] "
+            ": e[2]) - 1;") in flat
+    assert "__all_sync(0xffffffffu, fits) ? 1 : 0};" in flat
+    assert ("const int last = static_cast<int>(floorf(fminf(fmaxf(high, "
+            "-kFar), kFar))) + kFirst + kTaps - 1;") in flat
+    assert "bool in_box = true; if (!lo.whole) {" in flat
+
+
 # ------------------------------------- the kernel's persistent schedule
 
 def brick_of(item, n_bricks, bricks_y, bricks_x):
@@ -411,30 +467,37 @@ def bench_rotations(shape, n=16):
 def test_speed_rule_routes_each_set_to_the_faster_kernel(shape):
     """The picks PERF.md states for chip_smoke.py's matrix sets on the H100,
     at 250^3 and at the CPU tests' (40, 48, 56), where the bricks are whole
-    and the boxes the same.  Trilinear: every single tilt goes to the slab
-    kernel, but the 41-tilt series about axis 1 as one launch (its
-    envelope's box) and the random rotations go to the walk kernel; the
-    series about axis 0 as one launch to the slab kernel.  Cubic: the
-    random rotations whose box fits, and the series about axis 1 as one
-    launch, go to the slab kernel; the series about axis 0 to the walk
-    kernel."""
+    and the boxes the same.  One matrix a launch, every set goes to the
+    walk kernel in both orders.  As the paths launch them (the tilt series
+    in chunks of 34 and 7, the random rotations in one launch), the slab
+    kernel takes the chunks of the series about axis 0 trilinear (4.39 box
+    voxels per output voxel, where it is within 5% of the walk kernel) and
+    nothing else; the reasons say why."""
     tilt = tilt_series(1, "rzxz", shape)
     recon = tilt_series(0, "rzxz", shape)
     rots = bench_rotations(shape)
-    assert all(choose_plan(m, shape, "linear") is not None for m in tilt)
-    assert choose_plan(tilt, shape, "linear") is None
-    assert route(tilt, shape, "linear").rule == "speed"
-    assert choose_plan(recon, shape, "linear") is not None
-    slab_linear = [choose_plan(m, shape, "linear") is not None for m in rots]
-    assert sum(slab_linear) == 1
-    for m in rots:
-        assert (choose_plan(m, shape, "bspline") is not None) == (
-            slab_plan(m, shape, "bspline") is not None)
     assert sum(slab_plan(m, shape, "bspline") is not None
                for m in rots) == 13
-    assert choose_plan(tilt, shape, "bspline") is not None
-    assert choose_plan(recon, shape, "bspline") is None
-    assert all(choose_plan(m, shape, "bspline") is None for m in recon)
-    # the window: trilinear at most 8 box voxels per output voxel, cubic at
-    # least 12
-    assert SLAB_WINDOW == {1: (0.0, 8.0), 3: (12.0, float("inf"))}
+    for interpolation in ("linear", "bspline"):
+        for ms in (tilt, recon, rots):
+            for m in ms:
+                plan, rule, reason = route(m, shape, interpolation)
+                assert plan is None
+                assert rule == "box" or "outside" in reason or (
+                    "every box size" in reason)
+        # the box rule admits the tilt series as single launches: the
+        # speed rule decides those
+        assert all(route(m, shape, interpolation).rule == "speed"
+                   for m in tilt)
+    for chunk in (slice(0, 34), slice(34, 41)):
+        plan, rule, reason = route(recon[chunk], shape, "linear")
+        assert plan is not None and rule == "speed" and "inside" in reason
+        assert plan.box_per_voxel == pytest.approx(4.3945, abs=1e-3)
+        assert choose_plan(recon[chunk], shape, "bspline") is None
+        for interpolation in ("linear", "bspline"):
+            assert choose_plan(tilt[chunk], shape, interpolation) is None
+    for interpolation in ("linear", "bspline"):
+        assert choose_plan(rots, shape, interpolation) is None
+    # the window: trilinear launches of at least 2 matrices and at most
+    # 4.5 box voxels per output voxel; cubic none
+    assert SLAB_WINDOW == {1: SlabWindow(2, 4.5), 3: None}

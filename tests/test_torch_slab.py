@@ -31,6 +31,7 @@ from voltools_tpu.kernels.pallas_affine import (_tree_runner,
                                                 choose_variant)
 from voltools_tpu_torch.kernels import _build
 from voltools_tpu_torch.kernels import affine_slab as slab_module
+from voltools_tpu_torch.kernels import planner
 from voltools_tpu_torch.kernels.affine_resample import affine_resample
 from voltools_tpu_torch.kernels.affine_slab import affine_slab, overflows
 from voltools_tpu_torch.kernels.layout import (padded_width, pitched,
@@ -221,22 +222,37 @@ def test_nothing_is_built_or_loaded_at_import():
     assert proc.returncode == 0, proc.stderr
 
 
-def test_api_dispatches_through_the_planner():
+def test_api_dispatches_through_the_planner(monkeypatch):
     vol = np.random.default_rng(3).random((30, 31, 32)).astype(np.float32)
     sv = tvt.StaticVolume(vol, "linear", device="cpu")
     tilt = tilts()[0]
+    # the speed rule sends one tilt to the walk kernel, with its warp patch
+    sv.affine(tilt)
+    info = tvt.last_dispatch()
+    assert info["impl"] == "torch" and info["variant"] is None
+    assert info["rule"] == "speed" and "walk kernel" in info["reason"]
+    assert "warp patch" in info["reason"]
+    # where the speed rule's window holds the launch, the dispatch takes
+    # the slab kernel
+    monkeypatch.setitem(planner.SLAB_WINDOW, 1,
+                        planner.SlabWindow(1, float("inf")))
     sv.affine(tilt)
     info = tvt.last_dispatch()
     assert info["impl"] == "torch" and isinstance(info["variant"], SlabPlan)
     assert "slab kernel" in info["reason"]
     rot = transform_matrix(rotation=(45, 45, 45), rotation_order="rzxz",
                            center=(14.5, 15.0, 15.5))
+    sv.affine(rot)
+    info = tvt.last_dispatch()
+    assert info["variant"] is None and "walk kernel" in info["reason"]
+    # the box rule's reason names the box
+    extents = slab_extents(rot, vol.shape, 1)
+    assert str(extents) in info["reason"] and info["rule"] == "box"
     sv_cub = tvt.StaticVolume(vol, "bspline", device="cpu")
     sv_cub.affine(rot)
     info = tvt.last_dispatch()
     assert info["variant"] is None and "walk kernel" in info["reason"]
-    extents = slab_extents(rot, vol.shape, 3)
-    assert str(extents) in info["reason"]
+    assert "every box size" in info["reason"]
     # a batch is planned as one envelope per chunk
     sv.affine_batch(np.stack([tilt, rot]).astype(np.float32))
     assert tvt.last_dispatch()["variant"] == choose_plan(

@@ -20,7 +20,14 @@ matrices, with CUDA events, in one process:
 * ``tile_4x8x32_256`` -- both orders on (4, 8, 32) bricks of 256 threads
   (the tile before the per-order one);
 * ``linear_threads_512`` -- trilinear with 2 threads along z a column;
-* ``cubic_8x8x32`` -- cubic on (8, 8, 32) bricks, 512 threads.
+* ``cubic_8x8x32`` -- cubic on (8, 8, 32) bricks, 512 threads;
+* ``edge_path_only`` -- no interior fast path: every cubic warp takes the
+  edge path (mirror or clip), as trilinear does;
+* ``linear_fast_path`` -- trilinear takes the interior fast path too (its
+  lanes past a brick's x end stay for the vote);
+* ``per_voxel_box_test`` -- every voxel of the edge path tests its taps
+  against the box, also where the brick's corners show that the box holds
+  them all.
 
 Each variant is planned with its own bricks.  A variant whose boxes do not
 fit for every matrix of a set reads null there.  The variants that skip
@@ -30,8 +37,8 @@ contiguous (``walk_contiguous``).  Run from the repository root:
 
     python3 tools/slab_variants.py
 
-It prints the card's name and power limit, then one JSON line per matrix
-set and order: ms per 250^3 matrix, one matrix per launch, for the walk
+It prints the card's name and power limit, each build's registers and
+spills, then one JSON line per matrix set and order: ms per 250^3 matrix, one matrix per launch, for the walk
 kernel and each variant, with the plans' box voxels per output voxel.
 """
 
@@ -51,6 +58,7 @@ STAGE_BOX_TMA = '''  asm volatile(
       "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(b)
       : "memory");'''
 COMPUTE = "  const SharedSource shared{box, lo.z, lo.y, lo.x, e[1], e[2]};\n"
+FAST_VOTE = "if (__all_sync(kWarpMask, interior || !inside)) {"
 
 
 def tile(bz_linear, tz_linear, bz_cubic, tz_cubic):
@@ -77,7 +85,7 @@ VARIANTS = {
     "no_compute": ([(COMPUTE,
                      "  {\n"
                      "    const int n_box = e[0] * e[1] * e[2];\n"
-                     "    for (int u = br.u0; u <= br.u1; ++u) {\n"
+                     "    for (int u = br.u0; here && u <= br.u1; ++u) {\n"
                      "      out[((br.b * o0 + u) * o1 + v) *\n"
                      "              static_cast<long long>(o2) + w] =\n"
                      "          box[(threadIdx.y * 32 + threadIdx.x) % "
@@ -88,6 +96,15 @@ VARIANTS = {
     "tile_4x8x32_256": tile(4, 1, 4, 1),
     "linear_threads_512": tile(8, 2, 4, 2),
     "cubic_8x8x32": tile(8, 1, 8, 2),
+    "edge_path_only": ([(FAST_VOTE, "if (false) {")], None, None),
+    "per_voxel_box_test": ([("    if (!lo.whole) {", "    if (true) {")],
+                           None, None),
+    "linear_fast_path": ([("  if constexpr (ORDER == 1) {\n"
+                           "    if (w > br.w1) return;\n  }\n", ""),
+                          ("    if constexpr (ORDER == 3) {\n      resample::"
+                           "Weights<ORDER> wt;",
+                           "    if constexpr (true) {\n      resample::"
+                           "Weights<ORDER> wt;")], None, None),
 }
 
 
@@ -103,6 +120,7 @@ def main():
     from voltools_tpu_torch.kernels import _build, planner
     from voltools_tpu_torch.kernels import affine_resample as walk_module
     from voltools_tpu_torch.kernels.layout import pitched
+    from voltools_tpu_torch.kernels.planner import walk_patch
     from voltools_tpu_torch.utils import transform_matrix
 
     print(subprocess.run(
@@ -131,15 +149,18 @@ def main():
             with open(path, "w") as f:
                 f.write(text)
             lib = os.path.join(tmp, f"lib{name}.so")
-            subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-                            lib, path], check=True, capture_output=True,
-                           timeout=600)
-            return lib
+            proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
+                                   "-o", lib, path], capture_output=True,
+                                  text=True, timeout=600)
+            assert proc.returncode == 0, (name, proc.stdout, proc.stderr)
+            return lib, [ln.strip() for ln in (proc.stdout + proc.stderr)
+                         .splitlines() if "registers" in ln or "spill" in ln]
 
         with ThreadPoolExecutor(len(builds)) as pool:
-            paths = dict(zip(builds, pool.map(build, builds)))
+            built = dict(zip(builds, pool.map(build, builds)))
         libs = {}
-        for name, path in paths.items():
+        for name, (path, ptxas) in built.items():
+            print(json.dumps({"variant": name, "ptxas": ptxas}), flush=True)
             fn = ctypes.CDLL(path).affine_slab_launch
             fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4
                            + [ctypes.c_void_p, ctypes.c_longlong,
@@ -205,11 +226,14 @@ def main():
                 plans, _ = plans_for(ms, interp, None)
                 fit = [i for i, p in enumerate(plans) if p is not None]
                 ms_dev = torch.from_numpy(ms).to(dev)
+                # the walk kernel with the warp patch the planner picks
+                patches = [walk_patch(m) for m in ms]
                 row = {}
                 for key, v in (("walk", vol), ("walk_contiguous", flat)):
                     row[key] = time_ms(
                         lambda i, v=v: walk_module.affine_resample(
-                            v, ms_dev[fit[i % len(fit)]], order, out=out),
+                            v, ms_dev[fit[i % len(fit)]], order, out=out,
+                            patch=patches[fit[i % len(fit)]]),
                         2 * len(fit))
                 ratio = {}
                 for name, (_, stages, bricks) in VARIANTS.items():

@@ -54,7 +54,10 @@
 // A voxel with a tap outside its CTA's box (matrices whose box is larger
 // than the launch's extents) reads all its taps from global memory and
 // counts one overflow, so no stale shared memory is ever read, the result
-// is right even then, and the overflow counter says it happened.
+// is right even then, and the overflow counter says it happened.  Where
+// the brick's corners show that the box holds every tap of the brick
+// (Origin::whole, decided by warp 0 with the origin), no voxel tests its
+// taps against the box.
 //
 // The tensor map of the volume is encoded on the host for each launch and
 // passed as a __grid_constant__ parameter.  TMA needs every global stride
@@ -78,9 +81,14 @@
 // that needs it, instead of through L1/L2 per tap as affine_resample.cu
 // does; it hides a box's load behind the compute of the items before it
 // (and of the other CTAs on the SM), so a CTA's time is the larger of its
-// traffic and its compute rather than their sum; and per order it takes
-// the tile that keeps most warps busy: cubic's 512 threads give a CTA 16
-// warps where one CTA fills an SM.
+// traffic and its compute rather than their sum; per order it takes the
+// tile that keeps most warps busy: cubic's 512 threads give a CTA 16
+// warps where one CTA fills an SM; and a cubic warp whose voxels lie away
+// from the volume's edges and inside the box takes the interior fast path
+// that affine_resample.cu's cubic takes (resample::interior_sum), without
+// the mirror's `%`, the clips and the per-tap box test (trilinear's fast
+// path was slower, tools/slab_variants.py, and trilinear runs the edge
+// path, without its box test where the brick's box holds every tap).
 // Where the box per output voxel still makes it the slower kernel, the
 // planner gives the launch to affine_resample.cu (kernels/planner.py).
 // What it leaves for later: a CTA that marched along z could reuse the
@@ -151,6 +159,7 @@ struct Brick {
 
 struct Origin {
   int z, y, x;  // the first source voxel of a box
+  int whole;    // 1: every tap of every voxel of the brick lies in the box
 };
 
 template <int ORDER>
@@ -179,29 +188,44 @@ __device__ __forceinline__ Brick brick_of(long long item, long long bricks,
 // multiple of 4 (TMA starts a row on a 16-byte boundary; a box whose x
 // origin is not one faults with an illegal instruction on the H100).  A
 // whole warp calls it: lane 8a + c evaluates corner c along axis a (lanes
-// 24-31 repeat axis 2), a butterfly over each 8 lanes takes the min, and
-// every lane gets the origin.
+// 24-31 repeat axis 2), butterflies over each 8 lanes take the min and the
+// max, and every lane gets the origin.  The box of extents e holds every
+// tap of the brick ('whole') where, on every axis, floor(max over the
+// corners) + last tap lies in it: a voxel's coordinate is monotone in each
+// of u, v and w (each product and sum of source_coord is rounded
+// monotonically), so the corners bound every voxel's floor, and its taps
+// after the clip or the mirror lie between the box's first voxel and that
+// last tap.
 template <int ORDER>
-__device__ __forceinline__ Origin box_origin(const float* m, const Brick& br) {
+__device__ __forceinline__ Origin box_origin(const float* m, const Brick& br,
+                                             const int e[3]) {
   constexpr int kFirst = resample::TapCount<ORDER>::kFirst;
+  constexpr int kTaps = resample::TapCount<ORDER>::kTaps;
   const int a = min(static_cast<int>(threadIdx.x) >> 3, 2);
   const int c = threadIdx.x & 7;
-  float s = resample::source_coord(
+  const float s = resample::source_coord(
       __ldg(m + 4 * a), __ldg(m + 4 * a + 1), __ldg(m + 4 * a + 2),
       __ldg(m + 4 * a + 3), static_cast<float>(c & 4 ? br.u1 : br.u0),
       static_cast<float>(c & 2 ? br.v1 : br.v0),
       static_cast<float>(c & 1 ? br.w1 : br.w0));
+  float low = s, high = s;
 #pragma unroll
   for (int lane = 1; lane < 8; lane <<= 1) {
-    s = fminf(s, __shfl_xor_sync(0xffffffffu, s, lane));
+    low = fminf(low, __shfl_xor_sync(0xffffffffu, low, lane));
+    high = fmaxf(high, __shfl_xor_sync(0xffffffffu, high, lane));
   }
   // clamped first, so that the conversion to int cannot overflow
   constexpr float kFar = 1.0e9f;
-  const int lo =
-      static_cast<int>(floorf(fminf(fmaxf(s, -kFar), kFar))) + kFirst - 1;
+  int lo = static_cast<int>(floorf(fminf(fmaxf(low, -kFar), kFar))) +
+           kFirst - 1;
+  if (a == 2) lo &= ~(kRowAlign - 1);
+  const int last = static_cast<int>(floorf(fminf(fmaxf(high, -kFar), kFar))) +
+                   kFirst + kTaps - 1;
+  const bool fits = last <= lo + (a == 0 ? e[0] : a == 1 ? e[1] : e[2]) - 1;
   return Origin{__shfl_sync(0xffffffffu, lo, 0),
                 __shfl_sync(0xffffffffu, lo, 8),
-                __shfl_sync(0xffffffffu, lo, 16) & ~(kRowAlign - 1)};
+                __shfl_sync(0xffffffffu, lo, 16),
+                __all_sync(0xffffffffu, fits) ? 1 : 0};
 }
 
 __device__ __forceinline__ uint32_t shared_address(const void* p) {
@@ -257,13 +281,13 @@ template <int ORDER>
 __device__ __forceinline__ void load_item(
     long long k, const CUtensorMap* map, const float* __restrict__ mats,
     long long bricks, int bricks_y, int bricks_x, long long items, int o0,
-    int o1, int o2, int stages, float* buffers, int stride,
+    int o1, int o2, const int e[3], int stages, float* buffers, int stride,
     uint32_t box_bytes, uint64_t* full, Origin* origin) {
   const long long item = blockIdx.x + k * gridDim.x;
   if (item >= items) return;
   const Brick br =
       brick_of<ORDER>(item, bricks, bricks_y, bricks_x, o0, o1, o2);
-  const Origin lo = box_origin<ORDER>(mats + 16 * br.b, br);
+  const Origin lo = box_origin<ORDER>(mats + 16 * br.b, br, e);
   if (threadIdx.x == 0) {
     const int i = static_cast<int>(k % stages);
     // read after the barrier's wait: its arrive orders this write
@@ -276,9 +300,26 @@ __device__ __forceinline__ void load_item(
   }
 }
 
+// A row's taps from the staged box.
+template <int TAPS>
+struct BoxRow {
+  __device__ __forceinline__ void operator()(const float* p,
+                                             float v[TAPS]) const {
+#pragma unroll
+    for (int k = 0; k < TAPS; ++k) v[k] = p[k];
+  }
+};
+
 // Every voxel of brick `br` that this thread owns (column (v0 + ty, w0 +
 // tx), every kTz-th voxel along z from u0 + tz), with its taps read from
-// the box at `lo`.
+// the box at `lo`.  Cubic: a warp (32 threads along x, one column of y and
+// z) whose in-range voxels all have every tap inside the volume and inside
+// the box takes the interior fast path (resample::interior_sum, rows of
+// the box at consecutive addresses, no mirror, clip or box test per tap),
+// decided by a warp vote; any other warp, and trilinear (whose fast path
+// was slower on the card, tools/slab_variants.py), the edge path.  Cubic
+// lanes past a ragged brick's x end are masked, not returned, so every
+// lane votes.
 template <int ORDER, bool CONSTANT>
 __device__ __forceinline__ void brick_from_box(
     const Brick& br, const Origin& lo, const float* box,
@@ -286,9 +327,16 @@ __device__ __forceinline__ void brick_from_box(
     const int n[3], const int e[3], float* __restrict__ out, int o0, int o1,
     int o2, float cval, int* overflows) {
   constexpr int kTaps = resample::TapCount<ORDER>::kTaps;
+  constexpr unsigned kWarpMask = 0xffffffffu;
   const int v = br.v0 + threadIdx.y;
   const int w = br.w0 + threadIdx.x;
-  if (v > br.v1 || w > br.w1) return;
+  // warp-uniform: a warp is one (y, z) column of the CTA
+  if (v > br.v1) return;
+  // trilinear takes no warp vote: a lane past the brick's x end leaves
+  if constexpr (ORDER == 1) {
+    if (w > br.w1) return;
+  }
+  const bool here = w <= br.w1;
   float m[12];
 #pragma unroll
   for (int i = 0; i < 12; ++i) m[i] = __ldg(mats + 16 * br.b + i);
@@ -306,21 +354,51 @@ __device__ __forceinline__ void brick_from_box(
     }
     float* dst = out + ((br.b * o0 + u) * o1 + v) *
                            static_cast<long long>(o2) + w;
-    if (!resample::inside<CONSTANT>(s, n[0], n[1], n[2])) {
-      *dst = cval;
+    const bool inside =
+        here && resample::inside<CONSTANT>(s, n[0], n[1], n[2]);
+    if constexpr (ORDER == 3) {
+      resample::Weights<ORDER> wt;
+      bool interior = false;
+      if (inside) {
+        resample::make_weights<ORDER>(s, &wt);
+        interior = resample::interior<ORDER>(wt, n);
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          interior &=
+              wt.base[a] >= l[a] && wt.base[a] + kTaps - l[a] <= e[a];
+        }
+      }
+      if (__all_sync(kWarpMask, interior || !inside)) {
+        if (inside) {
+          const float* origin =
+              box + ((wt.base[0] - l[0]) * e[1] + (wt.base[1] - l[1])) *
+                        e[2] +
+              (wt.base[2] - l[2]);
+          *dst = resample::interior_sum<ORDER, int>(
+              wt, origin, e[1] * e[2], e[2], BoxRow<kTaps>{});
+        } else if (here) {
+          *dst = cval;
+        }
+        continue;
+      }
+    }
+    if (!inside) {
+      if (here) *dst = cval;
       continue;
     }
     resample::Taps<ORDER> taps;
     resample::make_taps<ORDER, CONSTANT>(s, n, &taps);
     // every tap that will be read lies in the box ('border' never reads
-    // an out-of-range tap)
+    // an out-of-range tap): so for the whole brick, else test the taps
     bool in_box = true;
+    if (!lo.whole) {
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
+      for (int a = 0; a < 3; ++a) {
 #pragma unroll
-      for (int k = 0; k < kTaps; ++k) {
-        const int i = taps.idx[a][k] - l[a];
-        in_box &= (!CONSTANT && !taps.ok[a][k]) || (i >= 0 && i < e[a]);
+        for (int k = 0; k < kTaps; ++k) {
+          const int i = taps.idx[a][k] - l[a];
+          in_box &= (!CONSTANT && !taps.ok[a][k]) || (i >= 0 && i < e[a]);
+        }
       }
     }
     if (in_box) {
@@ -362,16 +440,16 @@ affine_slab_kernel(const __grid_constant__ CUtensorMap map,
   }
   __syncthreads();
 
+  const int n[3] = {d0, d1, d2};
+  const int e[3] = {e0, e1, e2};
   const bool producer = threadIdx.y == 0 && threadIdx.z == 0;  // warp 0
   if (producer) {
     for (int k = 0; k < stages - 1; ++k) {
       load_item<ORDER>(k, &map, mats, bricks, bricks_y, bricks_x, items, o0,
-                       o1, o2, stages, buffers, stride, box_bytes, full,
+                       o1, o2, e, stages, buffers, stride, box_bytes, full,
                        origin);
     }
   }
-  const int n[3] = {d0, d1, d2};
-  const int e[3] = {e0, e1, e2};
   const resample::GlobalSource global{vol, d1, pitch};
   for (long long k = 0;; ++k) {
     const long long item = blockIdx.x + k * gridDim.x;
@@ -381,8 +459,8 @@ affine_slab_kernel(const __grid_constant__ CUtensorMap map,
     __syncthreads();
     if (producer) {
       load_item<ORDER>(k + stages - 1, &map, mats, bricks, bricks_y,
-                       bricks_x, items, o0, o1, o2, stages, buffers, stride,
-                       box_bytes, full, origin);
+                       bricks_x, items, o0, o1, o2, e, stages, buffers,
+                       stride, box_bytes, full, origin);
     }
     const int i = static_cast<int>(k % stages);
     barrier_wait(&full[i], static_cast<uint32_t>((k / stages) & 1));

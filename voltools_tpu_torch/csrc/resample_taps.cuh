@@ -5,7 +5,10 @@
 // reads them from a box of the source staged in shared memory.  Both
 // compute every output voxel with the functions below, templated on where
 // a tap is read from, so the two give bit-identical results and the
-// planner's choice between them never shows in the output.
+// planner's choice between them never shows in the output.  A point whose
+// taps all lie inside the volume (interior) may take interior_sum, which
+// reads the same taps with the same weights in the same order as tap_sum
+// without the edge code.
 //
 // Every floating-point operation is rounded on its own (__fmul_rn,
 // __fadd_rn, __fsub_rn: no FMA contraction), in the order of the plain
@@ -80,6 +83,49 @@ __device__ __forceinline__ void bspline_weights(float f, float w[4]) {
   w[3] = __fmul_rn(__fmul_rn(1.0f / 6.0f, f2), f);
 }
 
+// The first tap's index (floor(s) + first tap - floor, before any mirror
+// or clip) and the taps' weights of one source point, per axis.
+template <int ORDER>
+struct Weights {
+  static constexpr int kTaps = TapCount<ORDER>::kTaps;
+  int base[3];
+  float w[3][kTaps];
+};
+
+template <int ORDER>
+__device__ __forceinline__ void make_weights(const float s[3],
+                                             Weights<ORDER>* t) {
+  constexpr int kFirst = TapCount<ORDER>::kFirst;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float f0 = floorf(s[a]);
+    const float f = __fsub_rn(s[a], f0);
+    t->base[a] = static_cast<int>(f0) + kFirst;
+    if constexpr (ORDER == 1) {
+      t->w[a][0] = __fsub_rn(1.0f, f);
+      t->w[a][1] = f;
+    } else {
+      bspline_weights(f, t->w[a]);
+    }
+  }
+}
+
+// Whether every tap of a point lies inside the volume on every axis
+// (base >= 0 and base + taps - 1 <= n - 1), decided on the bases that
+// make_taps floors.  Then tap k along each axis has index base + k, which
+// the mirror, the clip and the 'border' flags all leave as it is: a sum
+// over base + k reads the taps tap_sum reads, with the same weights.  A
+// point exactly at n - 1 (linear's clipped +1 tap, cubic's mirror row) is
+// not interior.
+template <int ORDER>
+__device__ __forceinline__ bool interior(const Weights<ORDER>& t,
+                                         const int n[3]) {
+  constexpr int kTaps = TapCount<ORDER>::kTaps;
+  return t.base[0] >= 0 && t.base[0] + kTaps <= n[0] && t.base[1] >= 0 &&
+         t.base[1] + kTaps <= n[1] && t.base[2] >= 0 &&
+         t.base[2] + kTaps <= n[2];
+}
+
 // Tap indices (after mirror or clip), their in-range flags and weights, of
 // one source point, per axis.
 template <int ORDER>
@@ -94,21 +140,14 @@ template <int ORDER, bool CONSTANT>
 __device__ __forceinline__ void make_taps(const float s[3], const int n[3],
                                           Taps<ORDER>* t) {
   constexpr int kTaps = TapCount<ORDER>::kTaps;
-  constexpr int kFirst = TapCount<ORDER>::kFirst;
+  Weights<ORDER> wt;
+  make_weights<ORDER>(s, &wt);
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const float f0 = floorf(s[a]);
-    const float f = __fsub_rn(s[a], f0);
-    const int base = static_cast<int>(f0) + kFirst;
-    if constexpr (ORDER == 1) {
-      t->w[a][0] = __fsub_rn(1.0f, f);
-      t->w[a][1] = f;
-    } else {
-      bspline_weights(f, t->w[a]);
-    }
 #pragma unroll
     for (int k = 0; k < kTaps; ++k) {
-      const int i = base + k;
+      const int i = wt.base[a] + k;
+      t->w[a][k] = wt.w[a][k];
       t->ok[a][k] = i >= 0 && i < n[a];
       if constexpr (CONSTANT && ORDER == 3) {
         t->idx[a][k] = mirror_index(i, n[a]);
@@ -146,6 +185,38 @@ __device__ __forceinline__ float tap_sum(const Taps<ORDER>& t, const S& src) {
             CONSTANT || (t.ok[0][iz] && t.ok[1][iy] && t.ok[2][ix]);
         const float v = ok ? src.load(row, t.idx[2][ix]) : 0.0f;
         acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(w_zy, t.w[2][ix]), v));
+      }
+    }
+  }
+  return acc;
+}
+
+// The tap sum of an interior point (interior()): tap_sum's products and
+// additions in tap_sum's order, over rows base + k.  `origin` points at the
+// point's first tap (base[0], base[1], base[2]) of a source whose rows lie
+// `pitch` and whose planes lie `plane` floats apart, in offsets of type
+// Index; row (iz, iy) starts at origin + iz * plane + iy * pitch, its taps
+// along x at consecutive addresses, and `row(p, v)` reads the taps of the
+// row that starts at p into v.
+template <int ORDER, class Index, class Row>
+__device__ __forceinline__ float interior_sum(const Weights<ORDER>& t,
+                                              const float* origin,
+                                              Index plane, Index pitch,
+                                              const Row& row) {
+  constexpr int kTaps = TapCount<ORDER>::kTaps;
+  float acc = 0.0f;
+#pragma unroll
+  for (int iz = 0; iz < kTaps; ++iz) {
+#pragma unroll
+    for (int iy = 0; iy < kTaps; ++iy) {
+      const float w_zy = __fmul_rn(t.w[0][iz], t.w[1][iy]);
+      float v[kTaps];
+      row(origin + (static_cast<Index>(iz) * plane +
+                    static_cast<Index>(iy) * pitch),
+          v);
+#pragma unroll
+      for (int ix = 0; ix < kTaps; ++ix) {
+        acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(w_zy, t.w[2][ix]), v[ix]));
       }
     }
   }

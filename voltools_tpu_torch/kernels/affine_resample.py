@@ -13,7 +13,13 @@ The volume given is sampled as it is: for ``order=3`` it holds B-spline
 coefficients already (``filt_bspline`` prefilters first) or raw samples
 (``bspline``).  It is contiguous or row-pitched (:mod:`.layout`): the
 kernel takes the row pitch, so the pitched resident volume that the slab
-kernel needs serves this one too.
+kernel needs serves this one too; where its rows start on 16-byte
+boundaries (:func:`vector_rows`), the cubic fast path reads them as
+aligned float4 loads.  Each launch runs with one of two warp patches,
+``FLAT_PATCH`` or ``DEEP_PATCH`` (the planner's ``walk_patch`` picks it);
+the result does not depend on it.  The kernel counts, on the device, the
+in-range voxels that took its interior fast path: :func:`fast_path_voxels`
+reads the count.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import torch
 
 from ..ops.sampling import affine_sample, affine_sample_batch
 from . import _build
-from .layout import row_pitch
+from .layout import ROW_ALIGN, row_pitch
 
 NAME = "affine_resample"
 SOURCE = "voltools_tpu_torch/csrc/affine_resample.cu"
@@ -33,27 +39,84 @@ REPLACES = "voltools_tpu/kernels/pallas_walk.py:1140"
 
 # grid.y runs over the matrices of one launch
 MAX_BATCH = 65535
+# the two warp patches of 32 output voxels along (z, y, x) a launch
+# chooses between (the kernel's kFlat*, kDeep*)
+FLAT_PATCH = (1, 4, 8)
+DEEP_PATCH = (2, 2, 8)
 
 _MODES = {"constant": 0, "border": 1}
 _PLAIN_INTERPOLATION = {1: "linear", 3: "bspline"}
+
+
+# affine_resample_launch's parameters
+ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # volume
+    ctypes.c_int,                                               # pitch
+    ctypes.c_void_p, ctypes.c_int,                              # matrices
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # output
+    ctypes.c_int, ctypes.c_int,                         # order, border
+    ctypes.c_int, ctypes.c_int,                 # float4 rows, deep patch
+    ctypes.c_float,                                             # cval
+    ctypes.c_void_p,                                       # fast-path count
+    ctypes.c_void_p,                                            # stream
+]
+# per CUDA device index: the kernel's fast-path counter, (slots, 16)
+# int64, each slot a 128-byte line whose first word counts in-range voxels
+# that took the fast path
+_COUNTS: dict = {}
+_COUNT_STRIDE = 16
 
 
 @functools.lru_cache(maxsize=1)
 def _library():
     lib = _build.load(NAME)
     fn = lib.affine_resample_launch
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # volume
-        ctypes.c_int,                                               # pitch
-        ctypes.c_void_p, ctypes.c_int,                              # matrices
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # output
-        ctypes.c_int, ctypes.c_int, ctypes.c_float,       # order, border, cval
-        ctypes.c_void_p,                                  # stream
-    ]
+    fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
     lib.affine_resample_error_string.argtypes = [ctypes.c_int]
     lib.affine_resample_error_string.restype = ctypes.c_char_p
+    lib.affine_resample_count_words.argtypes = []
+    lib.affine_resample_count_words.restype = ctypes.c_int
     return lib
+
+
+def _device_index(device) -> int:
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the kernels' counters live on a CUDA device, "
+                         f"not {device}")
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
+
+
+def _fast_path_counter(device: torch.device) -> torch.Tensor:
+    index = _device_index(device)
+    counter = _COUNTS.get(index)
+    if counter is None:
+        words = _library().affine_resample_count_words()
+        counter = torch.zeros((words // _COUNT_STRIDE, _COUNT_STRIDE),
+                              dtype=torch.int64,
+                              device=torch.device("cuda", index))
+        _COUNTS[index] = counter
+    return counter
+
+
+def fast_path_voxels(device="cuda") -> int:
+    """The in-range output voxels (those whose source point lies inside the
+    volume, by the launch's mode) that the kernel computed on its interior
+    fast path on ``device``, counted on the device by every launch since
+    the last :func:`reset_fast_path_voxels` in this process.  Trilinear
+    runs the edge path alone and counts none.  Reading it waits for the
+    device."""
+    counter = _COUNTS.get(_device_index(device))
+    return 0 if counter is None else int(counter[:, 0].sum())
+
+
+def reset_fast_path_voxels(device="cuda") -> None:
+    """Set the fast-path counter of ``device`` to 0 (in stream order)."""
+    counter = _COUNTS.get(_device_index(device))
+    if counter is not None:
+        counter.zero_()
 
 
 def _check(volume, matrices, order, mode, out_shape, out):
@@ -124,9 +187,24 @@ def _check_launch(volume, matrices, max_batch=MAX_BATCH) -> int:
     return n
 
 
+def vector_rows(volume: torch.Tensor) -> bool:
+    """Whether the kernel may read ``volume``'s rows as aligned float4
+    loads: its rows start on 16-byte boundaries (a row pitch that is a
+    multiple of ``ROW_ALIGN`` floats and 16-byte aligned storage), as a
+    pitched resident volume's do, and its storage holds the last row's
+    padding (an aligned float4 may reach into it).  Other volumes are read
+    a float at a time."""
+    pitch = row_pitch(volume)
+    d0, d1, _ = volume.shape
+    end = (volume.storage_offset() + d0 * d1 * pitch) * volume.element_size()
+    return (pitch % ROW_ALIGN == 0 and volume.data_ptr() % 16 == 0
+            and end <= volume.untyped_storage().nbytes())
+
+
 def affine_resample(volume: torch.Tensor, matrices: torch.Tensor, order: int,
                     mode: str = "constant", cval: float = 0.0,
-                    out_shape=None, out: torch.Tensor = None) -> torch.Tensor:
+                    out_shape=None, out: torch.Tensor = None,
+                    patch=FLAT_PATCH) -> torch.Tensor:
     """Resample ``volume`` (D, H, W) through pull-back ``matrices``.
 
     ``matrices`` is one (4, 4) matrix, giving an ``out_shape`` result, or a
@@ -135,11 +213,18 @@ def affine_resample(volume: torch.Tensor, matrices: torch.Tensor, order: int,
     float32 tensor of the result's shape on the volume's device; the result
     is written into it and it is returned.  All tensors are float32 and on
     one device; the volume is contiguous or row-pitched (:mod:`.layout`),
-    the others contiguous.  ``affine_resample.launches`` counts the
-    kernel launches (the CPU path launches nothing)."""
+    the others contiguous.  ``patch`` is the warp patch of the launch,
+    ``FLAT_PATCH`` or ``DEEP_PATCH`` (the planner's
+    :func:`~.planner.walk_patch` picks it; the result is the same).
+    ``affine_resample.launches`` counts the kernel launches (the CPU path
+    launches nothing), :func:`fast_path_voxels` the in-range voxels that
+    took the kernel's interior fast path."""
     out_shape = (tuple(volume.shape) if out_shape is None
                  else tuple(int(s) for s in out_shape))
     full = _check(volume, matrices, order, mode, out_shape, out)
+    if tuple(patch) not in (FLAT_PATCH, DEEP_PATCH):
+        raise ValueError(
+            f"patch must be {FLAT_PATCH} or {DEEP_PATCH}, got {patch!r}")
 
     if volume.device.type == "cpu":
         return _plain(volume, matrices, order, mode, cval, out_shape, out)
@@ -148,6 +233,9 @@ def affine_resample(volume: torch.Tensor, matrices: torch.Tensor, order: int,
         out = torch.empty(full, dtype=torch.float32, device=volume.device)
     if n == 0:
         return out
+    if matrices.data_ptr() % 16:
+        # the kernel reads each matrix row as one 16-byte load
+        matrices = matrices.clone()
     lib = _library()
     # the launch goes to the current device; make it the volume's for the
     # call only, so the caller's current device is left as it was
@@ -155,7 +243,9 @@ def affine_resample(volume: torch.Tensor, matrices: torch.Tensor, order: int,
         code = lib.affine_resample_launch(
             volume.data_ptr(), *volume.shape, row_pitch(volume),
             matrices.data_ptr(), n,
-            out.data_ptr(), *out_shape, order, _MODES[mode], float(cval),
+            out.data_ptr(), *out_shape, order, _MODES[mode],
+            int(vector_rows(volume)), int(tuple(patch) == DEEP_PATCH),
+            float(cval), _fast_path_counter(volume.device).data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if code != 0:
         message = lib.affine_resample_error_string(code).decode()

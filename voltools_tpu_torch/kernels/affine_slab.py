@@ -34,7 +34,7 @@ import torch
 
 from . import _build
 from .affine_resample import (_MODES, _PLAIN_INTERPOLATION, _check,
-                              _check_launch, _plain)
+                              _check_launch, _device_index, _plain)
 from .layout import ROW_ALIGN, row_pitch, tma_ready
 from .planner import MAX_BOX, STAGES, SlabPlan, slab_extents, slab_plan
 
@@ -71,15 +71,6 @@ def _library():
     lib.affine_slab_error_string.argtypes = [ctypes.c_int]
     lib.affine_slab_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _device_index(device) -> int:
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"the overflow counter lives on a CUDA device, "
-                         f"not {device}")
-    return torch.cuda.current_device() if device.index is None \
-        else device.index
 
 
 def overflows(device="cuda") -> int:

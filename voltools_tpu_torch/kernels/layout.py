@@ -4,10 +4,11 @@ The slab kernel (:mod:`.affine_slab`) copies its boxes with TMA, which
 needs every global stride to be a multiple of 16 bytes; a 250-float row is
 1000 bytes.  A *pitched* volume keeps its (D, H, W) voxels in a (D, H, P)
 buffer, P = W rounded up to ``ROW_ALIGN`` floats, and is the (D, H, W) view
-of that buffer: strides (H * P, P, 1).  The padding columns are never read:
+of that buffer: strides (H * P, P, 1).  No padding column is ever used:
 the kernels take the pitch and see W columns (TMA's tensor map has x extent
-W, so the padding is out of range to it), and the plain version reads the
-view.  At 250^3 the padding costs 0.8% more memory.
+W, so the padding is out of range to it; the walk kernel's aligned float4
+row loads may read padding and discard it), and the plain version reads
+the view.  At 250^3 the padding costs 0.8% more memory.
 """
 
 from __future__ import annotations

@@ -38,15 +38,24 @@ Two rules decide, on the plan alone (the planner never times anything):
    times follow how far the taps of a brick spread in the source, which
    the box measures as source voxels per output voxel
    (``SlabPlan.box_per_voxel``).  Trilinear, the slab kernel's time is its
-   box traffic from L2, which grows with the ratio, while the walk
-   kernel's gathers stay cheap: the slab kernel is the faster where the
-   ratio is small.  Cubic, the slab kernel's time is its compute, which
-   the ratio hardly moves, while the walk kernel's 64 gathers a voxel slow
-   down as they scatter: the slab kernel is the faster where the ratio is
-   large.  So it takes a launch only where the ratio lies in
-   ``SLAB_WINDOW[order]``.  The limits come from ``chip_smoke.py``'s times
-   of both kernels on the 41-tilt series and random rotations at 250^3
-   (PERF.md, "The planner's speed rule").
+   compute from shared memory where its boxes are small and its box
+   traffic from L2, which grows with the ratio, where they are large; the
+   walk kernel's stays flat.  The slab kernel takes a launch only inside
+   ``SLAB_WINDOW[order]``: at least ``matrices`` matrices in the launch
+   (its persistent grid pays its set-up once for them all) and at most
+   ``box_per_voxel``; ``None`` where it takes none.  The window comes
+   from ``chip_smoke.py``'s phase-7 times on an "NVIDIA H100 80GB HBM3,
+   700.00 W" (PR 7; PERF.md "The planner's speed rule"), after the walk
+   kernel's redesign (warp patches, several voxels a thread, the cubic
+   interior fast path) and the slab kernel's brick-wide box test:
+   trilinear, the slab kernel is the faster on the reconstruction's tilt
+   series as the path launches it (chunks of 34 and 7 tilts at 4.39 box
+   voxels per output voxel: 0.1046 against 0.1076 ms per matrix), level
+   with the walk kernel one matrix a launch at 3.8-4.5, and 1.1-3x slower
+   above; cubic, whose walk kernel runs on the fast path, it is slower at
+   every box size (1.4-1.5x on the tilt series).  A launch of fewer
+   matrices than the window's, or of an order it leaves out, is decided
+   before any plan is made: the planner runs on every call.
 
 The TPU-only parts of ``choose_variant`` have no counterpart: the 36 axis
 permutations, sublane drift and slop, row budgets, the unroll and fori
@@ -62,6 +71,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 
 from ..ops.interpolation import MODES, spline_order
+from .affine_resample import DEEP_PATCH, FLAT_PATCH
 from .layout import ROW_ALIGN, padded_width
 
 # output voxels per work item along (z, y, x), per spline order (the
@@ -71,9 +81,19 @@ STAGES = 2                  # box buffers per CTA: one computed, one loading
 SMEM_BUDGET = 112 * 1024    # bytes of one box buffer: STAGES fit 227 KB
 MAX_BOX = 256               # TMA's largest box extent along an axis
 SLACK = 3
-# the speed rule: the box voxels per output voxel, (least, most), at which
-# the slab kernel is the faster one, per spline order
-SLAB_WINDOW = {1: (0.0, 8.0), 3: (12.0, math.inf)}
+
+
+class SlabWindow(NamedTuple):
+    """Where the speed rule gives the slab kernel a launch of one spline
+    order: at least ``matrices`` matrices in the launch and at most
+    ``box_per_voxel`` source voxels staged per output voxel."""
+    matrices: int
+    box_per_voxel: float
+
+
+# the speed rule, per spline order; None where the slab kernel takes no
+# launch
+SLAB_WINDOW = {1: SlabWindow(2, 4.5), 3: None}
 
 
 @dataclass(frozen=True)
@@ -174,19 +194,33 @@ def slab_plan(matrices, vol_shape, interpolation: str,
 def route(matrices, vol_shape, interpolation: str, mode: str = "constant",
           out_shape=None) -> Route:
     """Which kernel serves ``matrices`` in one launch, by the box rule and
-    then the speed rule (see the module's docstring)."""
+    then the speed rule (see the module's docstring).  Where the slab
+    kernel is never the faster for the order, no plan is made."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    order = spline_order(interpolation)
+    window = SLAB_WINDOW[order]
+    if window is None:
+        return Route(None, "speed",
+                     f"the walk kernel is the faster at every box size "
+                     f"(order {order})")
+    n = _as_stack(matrices).shape[0]
+    if n < window.matrices:
+        return Route(None, "speed",
+                     f"{n} matrices a launch, outside the slab kernel's "
+                     f"window of at least {window.matrices} (order {order})")
     plan = _plan(matrices, vol_shape, interpolation, mode, out_shape)
     refusal = _box_refusal(plan)
     if refusal is not None:
         return Route(None, "box", refusal)
     ratio = plan.box_per_voxel
-    low, high = SLAB_WINDOW[plan.order]
-    faster = low <= ratio <= high
-    return Route(plan if faster else None, "speed",
-                 f"the slab box {plan.extents} holds {ratio:.2f} source "
-                 f"voxels per output voxel, {'in' if faster else 'outside'} "
-                 f"the [{low}, {high}] where the slab kernel is the faster "
-                 f"(order {plan.order})")
+    taken = ratio <= window.box_per_voxel
+    return Route(plan if taken else None, "speed",
+                 f"{n} matrices, the slab box {plan.extents} holding "
+                 f"{ratio:.2f} source voxels per output voxel: "
+                 f"{'inside' if taken else 'outside'} the slab kernel's "
+                 f"window, at least {window.matrices} matrices and at most "
+                 f"{window.box_per_voxel} (order {order})")
 
 
 def choose_plan(matrices, vol_shape, interpolation: str,
@@ -195,3 +229,38 @@ def choose_plan(matrices, vol_shape, interpolation: str,
     """The plan of :func:`route`: a :class:`SlabPlan` when the slab kernel
     takes the launch, else ``None`` (the walk kernel serves it)."""
     return route(matrices, vol_shape, interpolation, mode, out_shape).plan
+
+
+def _rows(rows, patch) -> float:
+    """(span_z + 1) * (span_y + 1) of one matrix's |M[:2, :3]| ``rows``
+    (lists of floats) for ``patch``."""
+    (z0, z1, z2), (y0, y1, y2) = rows
+    pz, py, px = (p - 1 for p in patch)
+    return (z0 * pz + z1 * py + z2 * px + 1.0) * (
+        y0 * pz + y1 * py + y2 * px + 1.0)
+
+
+def patch_rows(matrices, patch) -> float:
+    """The source rows that the image of one warp's ``patch`` (32 output
+    voxels along z, y, x) spans, summed over ``matrices``: per matrix
+    (span_z + 1) * (span_y + 1), span_a the sum over output axes j of
+    |M[a, j]| * (patch_j - 1).  Rows, not columns, because a warp's load of
+    one tap is served a 128-byte line at a time and a row's taps lie in
+    one or two lines."""
+    return sum(_rows(rows, patch) for rows in
+               np.abs(_as_stack(matrices)[:, :2, :3]).tolist())
+
+
+def walk_patch(matrices):
+    """The warp patch of a walk-kernel launch over ``matrices``: the deep
+    one (``DEEP_PATCH``, (2, 2, 8)) where its images span fewer source
+    rows than the flat one's (``FLAT_PATCH``, (1, 4, 8)), else the flat
+    one.  A tilt about the output's z axis keeps a flat patch in one source
+    plane; a rotation that mixes all three axes does better with the deep
+    one (tools/walk_variants.py, PERF.md).  Non-finite matrices take the
+    flat patch.  In Python floats: the planner calls it on every launch."""
+    deep = flat = 0.0
+    for rows in np.abs(_as_stack(matrices)[:, :2, :3]).tolist():
+        deep += _rows(rows, DEEP_PATCH)
+        flat += _rows(rows, FLAT_PATCH)
+    return DEEP_PATCH if deep < flat else FLAT_PATCH

@@ -34,7 +34,7 @@ import torch
 from .kernels.affine_resample import affine_resample
 from .kernels.affine_slab import affine_slab
 from .kernels.layout import pitched
-from .kernels.planner import route
+from .kernels.planner import route, walk_patch
 from .ops.interpolation import (AVAILABLE_INTERPOLATIONS, MODES,
                                 needs_prefilter, spline_order)
 from .ops.prefilter import bspline_prefilter
@@ -152,9 +152,10 @@ def _resample(vol: torch.Tensor, matrices: np.ndarray, interpolation: str,
                              plan=plan)
         kernel = "slab kernel (affine_slab)"
     else:
+        patch = walk_patch(matrices)
         result = affine_resample(vol, mats, order, mode, cval, out_shape,
-                                 out)
-        kernel = "walk kernel (affine_resample)"
+                                 out, patch=patch)
+        kernel = f"walk kernel (affine_resample, warp patch {patch})"
     kernel = f"{kernel} by the {rule} rule: {why}"
     if vol.device.type == "cuda":
         _LAST_DISPATCH.info = dict(impl="cuda", variant=plan, rule=rule,
