@@ -77,7 +77,24 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    plain versions, beside each kernel's bound (the larger of its bytes over
    the memory rate and its least arithmetic, for this run's matrices, over
    the fp32 rate) and ``torch.nn.functional.grid_sample`` (timed only; the
-   port never calls it).
+   port never calls it);
+8. registration -- ``examples/registration.py``'s blob phantom at 128^3
+   (a large subtomogram box; the example uses 64^3), moved by its hidden
+   rigid transform through the port's ``rodrigues_matrix`` and plain
+   sampler, rescaled and given noise; ``register(model='rigid',
+   loss='ncc', levels=2, steps=200)`` on 'cuda', 'linear' and
+   'filt_bspline', must recover the inverse transform within the bounds
+   below; the linear call on 'cpu' (plain torch, the host's cores) must
+   agree with the card's; ``phase_cross_correlation(upsample=10)`` on
+   both; ``RegistrationResult.apply`` on 'cuda', with the launch counters
+   set to 0 before the path and read after, each equal to the planner's;
+   CUDA-event times of the whole ``register``, of an Adam step per level
+   and of the phase correlation;
+9. cpu_backends -- the native C++ backend built with g++ on the card's
+   host (timed), then ``affine(..., device='cpu', cpu_backend='native')``
+   and ``'scipy'`` on the main path's 250^3 volume, 2 of its rotations,
+   linear and ``filt_bspline``, each held against A's output (1e-4 off
+   knife edges) and timed on the host, beside the host CPU's model.
 
 The line before the last is the ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -85,6 +102,7 @@ without a CUDA device the script exits 1 before printing a result.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -124,6 +142,26 @@ FP32_FLOPS = 67e12         # H100 SXM fp32 rate outside the tensor cores
 # voxel outside the source needs only its coordinates.
 FLOPS_INSIDE = {1: 18 + 3 + 3 * 1 + 2 * 14, 3: 18 + 3 + 3 * 14 + 2 * 84}
 FLOPS_OUTSIDE = 18
+# phase 8: examples/registration.py's phantom and hidden transform
+# (:30-39, :49-50) in a 128^3 box, registered in 2 levels of 200 steps
+REG_SIZE = 128
+REG_STEPS = 200
+REG_LEVELS = 2
+REG_W_TRUE = (0.05, -0.07, 0.06)   # radians
+REG_T_TRUE = (3.4, -2.2, 1.8)      # voxels
+PCC_UPSAMPLE = 10
+# recovery bounds: tests/test_registration.py's rigid test allows 0.3
+# degrees on a 24^3 volume; the same displacement at the edge of a 128^3
+# box is 0.3 * 24 / 128 degrees; its translation tests allow 0.05 voxel
+REG_DEG_TOL = 0.3 * 24 / REG_SIZE
+REG_T_TOL = 0.05
+# the card's register against the CPU's on the same call
+REG_W_CPU_TOL = 1e-3               # radians
+REG_T_CPU_TOL = 1e-2               # voxels
+REG_LOSS_RTOL = 1e-4               # the first 5 losses
+# steps per timed register call, for the slope of an Adam step per level
+REG_TIMED_STEPS = (5, 25)
+CPU_BACKEND_ROTATIONS = 2          # phase 9: rotations of the main path
 # the matrices of tests/test_pallas.py, on its (40, 48, 56) volume
 PALLAS_SHAPE = (40, 48, 56)
 PALLAS_CENTER = (19.5, 23.5, 27.5)
@@ -230,6 +268,70 @@ def tilt_series(np, transform_matrix, shape, axis):
     return np.stack(ms).astype(np.float32)
 
 
+def blob_phantom(np, ndimage, n, seed=0):
+    """examples/registration.py's phantom (:30-39) in an n^3 box: 14 balls
+    of radius 3-8 in the middle half, Gaussian-smoothed."""
+    rng = np.random.default_rng(seed)
+    vol = np.zeros((n, n, n), np.float32)
+    z, y, x = np.ogrid[:n, :n, :n]
+    for _ in range(14):
+        c = rng.integers(n // 4, 3 * n // 4, 3)
+        r = rng.integers(3, 9)
+        vol[(z - c[0]) ** 2 + (y - c[1]) ** 2 + (x - c[2]) ** 2 < r * r] += 1.0
+    return ndimage.gaussian_filter(vol, 1.2).astype(np.float32)
+
+
+def host_cpu_model():
+    """The host CPU as /proc/cpuinfo names it: its model name, and its
+    vendor, family, model and clock (a sandboxed host may report the model
+    name as 'unknown')."""
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            key = key.strip()
+            if not key and fields:
+                break   # the first processor's block is enough
+            if key in ("model name", "vendor_id", "cpu family", "model",
+                       "cpu MHz"):
+                fields.setdefault(key, value.strip())
+    return (f"{fields.get('model name', 'unknown')} "
+            f"({fields.get('vendor_id', '?')} family "
+            f"{fields.get('cpu family', '?')} model "
+            f"{fields.get('model', '?')}, {fields.get('cpu MHz', '?')} MHz)")
+
+
+def event_ms(torch, fn):
+    """Device time of one call of ``fn`` (CUDA events), and its result."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    result = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), result
+
+
+def device_ops(torch, fn):
+    """(device operations -- kernels, copies -- one call of ``fn`` runs,
+    the ms they keep the device busy, the host's waits on the device: CUDA
+    runtime calls named ...Synchronize), as torch.profiler records them;
+    None where it records no device operation."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ops:
+        return None
+    syncs = sum(e.name.endswith("Synchronize") for e in prof.events())
+    return (len(ops), sum(e.time_range.elapsed_us() for e in ops) / 1e3,
+            syncs)
+
+
 def time_ms(torch, fn, reps, warmup=None):
     """Mean device time of ``fn`` over ``reps`` back-to-back runs, after
     ``warmup`` runs (as many as ``reps``, at least 2, unless given: the
@@ -308,6 +410,7 @@ def main():
                                            sirt_reconstruct,
                                            wbp_reconstruct)
     from voltools_tpu_torch.models.projections import plain_project_stack
+    from voltools_tpu_torch.ops.interpolation import spline_order
     from voltools_tpu_torch.ops.prefilter import bspline_prefilter
     from voltools_tpu_torch.ops.sampling import affine_sample
     from voltools_tpu_torch.utils import (transform_matrix,
@@ -997,13 +1100,228 @@ def main():
          "launches after warm-up; the 62.5 MB volume exceeds the 50 MB L2",
          **t)
 
-    main_tilt = {k: main_launches[k] + tilt_launches[k]
+    # -------------------------------------------------- 8. registration
+    from voltools_tpu_torch import native
+    from voltools_tpu_torch.models import phase_cross_correlation, register
+    from voltools_tpu_torch.models.registration import _resize
+    from voltools_tpu_torch.utils import rodrigues_matrix
+
+    rshape = (REG_SIZE,) * 3
+    reference = blob_phantom(np, ndimage, REG_SIZE)
+    rcenter = tuple((s - 1) / 2 for s in rshape)
+    w_true = np.asarray(REG_W_TRUE, np.float32)
+    t_true = np.asarray(REG_T_TRUE, np.float32)
+    m_true = rodrigues_matrix(torch.from_numpy(w_true), rcenter).numpy()
+    m_true[:3, 3] -= t_true
+    ref_dev = torch.from_numpy(reference).to(dev)
+    moving = affine_sample(ref_dev, torch.from_numpy(m_true).to(dev),
+                           "linear").cpu().numpy()
+    noise = np.random.default_rng(1)
+    moving = (1.7 * moving + 0.2
+              + noise.normal(0, 0.01, moving.shape)).astype(np.float32)
+    mov_dev = torch.from_numpy(moving).to(dev)
+    # register(moving, reference) recovers the inverse of m_true: axis-angle
+    # -w_true, and the t' that solves c - R'c - R't' = inv(m_true)[:3, 3]
+    # (examples/registration.py:67-74)
+    w_expect = -w_true
+    r_inv = m_true[:3, :3].T
+    c_arr = np.asarray(rcenter, np.float32)
+    t_expect = np.linalg.solve(r_inv, c_arr - r_inv @ c_arr
+                               - np.linalg.inv(m_true)[:3, 3])
+    kw = dict(model="rigid", loss="ncc", levels=REG_LEVELS, steps=REG_STEPS)
+    interps = ("linear", "filt_bspline")
+    # warm-up: cuFFT's plans and the sampler's first launches
+    for interp in interps:
+        register(mov_dev, ref_dev, model="rigid", steps=2, levels=REG_LEVELS,
+                 interpolation=interp, device="cuda")
+
+    torch.cuda.synchronize()
+    walk.launches = slab.launches = 0
+    results, register_ms = {}, {}
+    for interp in interps:
+        register_ms[interp], results[interp] = event_ms(
+            torch, lambda: register(mov_dev, ref_dev, interpolation=interp,
+                                    device="cuda", **kw))
+    shift = phase_cross_correlation(ref_dev, mov_dev, upsample=PCC_UPSAMPLE,
+                                    device="cuda")
+    registered = {interp: results[interp].apply(
+        mov_dev, interpolation=interp, device="cuda", output="device")
+        for interp in interps}
+    torch.cuda.synchronize()
+    reg_launches = {S.NAME: slab.launches, K.NAME: walk.launches}
+    expected_reg = {S.NAME: 0, K.NAME: 0}
+    for interp in interps:
+        expected_reg[S.NAME if routed(results[interp].matrix, rshape,
+                                      spline_order(interp)) is not None
+                     else K.NAME] += 1
+    assert reg_launches == expected_reg, (reg_launches, expected_reg)
+    assert reg_launches[K.NAME] > 0, reg_launches
+
+    recovery = {}
+    inner = (slice(6, -6),) * 3
+
+    def norm(v):
+        v = v[inner]
+        return (v - v.mean()) / v.std()
+
+    for interp in interps:
+        res = results[interp]
+        deg = float(np.degrees(np.linalg.norm(res.params["w"] - w_expect)))
+        t_err = float(np.abs(res.params["t"] - t_expect).max())
+        assert np.isfinite(res.loss_history).all(), interp
+        assert len(res.loss_history) == REG_LEVELS * REG_STEPS
+        assert deg <= REG_DEG_TOL and t_err <= REG_T_TOL, (interp, deg,
+                                                            t_err)
+        # the applied result against the plain version, and the example's
+        # normalised L1 misfit before and after
+        out = registered[interp]
+        assert out.shape == rshape
+        want = affine_sample(mov_dev, torch.from_numpy(res.matrix).to(dev),
+                             interp)
+        off, _ = errors(torch, out, want, res.matrix)
+        assert off <= ATOL, ("apply", interp, off)
+        before = float((norm(mov_dev) - norm(ref_dev)).abs().mean())
+        after = float((norm(out) - norm(ref_dev)).abs().mean())
+        assert after < before, (interp, before, after)
+        recovery[interp] = {
+            "w": res.params["w"].tolist(), "t": res.params["t"].tolist(),
+            "rotation_error_deg": deg, "translation_error_vox": t_err,
+            "apply_max_abs_err_vs_plain": off,
+            "misfit_before": before, "misfit_after": after,
+            "first_loss": float(res.loss_history[0]),
+            "last_loss": float(res.loss_history[-1])}
+
+    # the phase correlation on the CPU: this phantom's upsampled peak is a
+    # near tie (two grid points 2e-4 apart on the CPU), which FFTs of
+    # another rounding may break the other way, so the two devices agree
+    # within one grid step
+    shift_cpu = phase_cross_correlation(reference, moving,
+                                        upsample=PCC_UPSAMPLE, device="cpu")
+    shift_diff = float((shift.cpu() - shift_cpu).abs().max())
+    assert shift_diff <= 1.0 / PCC_UPSAMPLE + 1e-6, (shift.tolist(),
+                                                     shift_cpu.tolist())
+    # the same linear call on the CPU (plain torch on the host's cores),
+    # from the card's phase-correlation seed (the card's register drew
+    # it); the cubic one would take minutes there (64 taps a voxel), and
+    # the card tests hold it at 32^3
+    t0 = time.perf_counter()
+    cpu_res = register(moving, reference, interpolation="linear",
+                       device="cpu", init_translation=shift.cpu().numpy(),
+                       **kw)
+    cpu_seconds = time.perf_counter() - t0
+    gpu_res = results["linear"]
+    w_diff = float(np.abs(gpu_res.params["w"] - cpu_res.params["w"]).max())
+    t_diff = float(np.abs(gpu_res.params["t"] - cpu_res.params["t"]).max())
+    loss_rel = float(np.max(np.abs(gpu_res.loss_history[:5]
+                                   - cpu_res.loss_history[:5])
+                            / np.abs(cpu_res.loss_history[:5])))
+    assert w_diff <= REG_W_CPU_TOL and t_diff <= REG_T_CPU_TOL, (w_diff,
+                                                                t_diff)
+    assert loss_rel <= REG_LOSS_RTOL, loss_rel
+
+    # times: the phase correlation alone, and an Adam step per level as the
+    # slope between two register calls on that level's volumes (one level,
+    # no phase correlation, the level's edge)
+    pcc_ms = time_ms(torch, lambda: phase_cross_correlation(
+        ref_dev, mov_dev, upsample=PCC_UPSAMPLE, device="cuda"), reps=10)
+    edge = max(1, round(0.05 * REG_SIZE))
+    step_ms, step_ops, step_busy, step_syncs = {}, {}, {}, {}
+    for level in range(REG_LEVELS - 1, -1, -1):
+        lshape = tuple(max(4, round(s / 2 ** level)) for s in rshape)
+        if lshape != rshape:
+            lmov, lref = _resize(mov_dev, lshape), _resize(ref_dev, lshape)
+            ledge = min(max(1, round(edge * lshape[0] / REG_SIZE)),
+                        (min(lshape) - 1) // 2)
+        else:
+            lmov, lref, ledge = mov_dev, ref_dev, edge
+        for interp in interps:
+            ms = [event_ms(torch, lambda n=n: register(
+                lmov, lref, model="rigid", loss="ncc", steps=n,
+                interpolation=interp, edge=ledge, init_translation=None,
+                device="cuda"))[0] for n in REG_TIMED_STEPS]
+            key = f"level_{level}_{lshape[0]}^3_{interp}"
+            step_ms[key] = ((ms[1] - ms[0])
+                            / (REG_TIMED_STEPS[1] - REG_TIMED_STEPS[0]))
+            ops = [device_ops(torch, lambda n=n: register(
+                lmov, lref, model="rigid", loss="ncc", steps=n,
+                interpolation=interp, edge=ledge, init_translation=None,
+                device="cuda")) for n in REG_TIMED_STEPS]
+            if None in ops:
+                step_ops[key] = step_busy[key] = step_syncs[key] = None
+            else:
+                span = REG_TIMED_STEPS[1] - REG_TIMED_STEPS[0]
+                step_ops[key] = (ops[1][0] - ops[0][0]) / span
+                step_busy[key] = (ops[1][1] - ops[0][1]) / span
+                step_syncs[key] = (ops[1][2] - ops[0][2]) / span
+                # the loop keeps its state on the device: no step waits
+                assert step_syncs[key] == 0, (key, step_syncs[key])
+    emit("registration", shape=list(rshape), model="rigid", loss="ncc",
+         levels=REG_LEVELS, steps=REG_STEPS,
+         w_expect=w_expect.tolist(), t_expect=t_expect.tolist(),
+         recovery=recovery, bounds={"rotation_deg": REG_DEG_TOL,
+                                    "translation_vox": REG_T_TOL},
+         phase_correlation_shift=shift.tolist(),
+         phase_correlation_shift_cpu=shift_cpu.tolist(),
+         cpu_linear={"seconds": cpu_seconds, "w_max_diff": w_diff,
+                     "t_max_diff": t_diff, "first_5_loss_max_rel": loss_rel,
+                     "shift_max_diff": shift_diff,
+                     "torch_threads": torch.get_num_threads(),
+                     "tolerances": {"w": REG_W_CPU_TOL, "t": REG_T_CPU_TOL,
+                                    "loss_rtol": REG_LOSS_RTOL}},
+         launches=reg_launches, expected_launches=expected_reg,
+         register_ms=register_ms, adam_step_ms=step_ms,
+         adam_step_device_ops=step_ops,
+         adam_step_device_busy_ms=step_busy,
+         adam_step_host_syncs=step_syncs,
+         phase_correlation_ms=pcc_ms,
+         method="CUDA events; a step per level is the slope between "
+         f"register calls of {REG_TIMED_STEPS} steps on that level; device "
+         "operations (kernels and copies) and the ms they keep the device "
+         "busy by torch.profiler, null where it recorded none")
+    del registered, mov_dev, ref_dev
+
+    # -------------------------------------------------- 9. cpu_backends
+    cached = native.library_path().is_file()
+    t0 = time.perf_counter()
+    if not native.available():
+        raise RuntimeError(f"native backend did not build: "
+                           f"{native._BUILD_ERROR}")
+    build_seconds = time.perf_counter() - t0
+    host = {"cpu": host_cpu_model(), "cores": os.cpu_count()}
+    rows = []
+    for i in range(CPU_BACKEND_ROTATIONS):
+        m = rots[i]
+        for order, interp in ((1, "linear"), (3, "filt_bspline")):
+            want = walk(coef[order], torch.from_numpy(m).to(dev), order)
+            got = {}
+            for backend in ("native", "scipy"):
+                t0 = time.perf_counter()
+                got[backend] = vt.affine(vol_np, m, interp, device="cpu",
+                                         cpu_backend=backend)
+                seconds = time.perf_counter() - t0
+                off, every = errors(torch, torch.from_numpy(
+                    got[backend]).to(dev), want, m)
+                assert off <= SCIPY_ATOL, (backend, interp, i, off)
+                rows.append({"backend": backend, "interpolation": interp,
+                             "rotation": i, "host_ms": seconds * 1e3,
+                             "max_abs_err_vs_A": off,
+                             "max_abs_err_vs_A_all_voxels": every})
+            rows.append({"native_vs_scipy_max_abs": float(np.abs(
+                got["native"] - got["scipy"]).max()),
+                "interpolation": interp, "rotation": i})
+    emit("cpu_backends", shape=list(big), host=host,
+         native_build_seconds=build_seconds, native_built_now=not cached,
+         gxx_flags=" ".join(native.GXX_FLAGS), atol=SCIPY_ATOL, calls=rows,
+         note="host times on the card's host CPU, not the card's")
+
+    main_tilt = {k: main_launches[k] + tilt_launches[k] + reg_launches[k]
                  for k in main_launches}
     kernels = [{
         "name": S.NAME, "route": "cuda", "source": S.SOURCE,
         "replaces": S.REPLACES, "launches": main_tilt[S.NAME],
         "launches_by_path": {"main": main_launches[S.NAME],
-                             "tilt": tilt_launches[S.NAME]},
+                             "tilt": tilt_launches[S.NAME],
+                             "registration": reg_launches[S.NAME]},
         "max_abs_err": max(slab_worst[1], slab_worst[3]),
         "ms": t["recon_tilt_linear_batch_slab_ms_per_matrix"],
         "plain_ms": t["recon_tilt_linear_plain_ms"],
@@ -1031,7 +1349,8 @@ def main():
         "name": K.NAME, "route": "cuda", "source": K.SOURCE,
         "replaces": K.REPLACES, "launches": main_tilt[K.NAME],
         "launches_by_path": {"main": main_launches[K.NAME],
-                             "tilt": tilt_launches[K.NAME]},
+                             "tilt": tilt_launches[K.NAME],
+                             "registration": reg_launches[K.NAME]},
         "max_abs_err": max(worst[1], worst[3], main_err[1], main_err[3]),
         "ms": t["random_linear_walk_ms"],
         "plain_ms": t["random_linear_plain_ms"],

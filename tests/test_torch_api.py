@@ -300,6 +300,8 @@ def test_port_imports_no_jax():
         "import voltools_tpu_torch.kernels.layout\n"
         "import voltools_tpu_torch.kernels.planner\n"
         "import voltools_tpu_torch.models\n"
+        "import voltools_tpu_torch.models.registration\n"
+        "import voltools_tpu_torch.native\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m.startswith('jaxlib.')\n"
         "       or m == 'voltools_tpu' or m.startswith('voltools_tpu.')]\n"

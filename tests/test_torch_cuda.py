@@ -25,10 +25,12 @@ from voltools_tpu_torch.kernels.affine_slab import (affine_slab,
 from voltools_tpu_torch.kernels.layout import pitched, tma_ready
 from voltools_tpu_torch.kernels.planner import (BRICK, SMEM_BUDGET, SlabPlan,
                                                 slab_extents, slab_plan)
-from voltools_tpu_torch.models import (TiltSeriesProjector, sirt_reconstruct,
-                                       wbp_reconstruct)
+from voltools_tpu_torch.models import (TiltSeriesProjector,
+                                       phase_cross_correlation, register,
+                                       sirt_reconstruct, wbp_reconstruct)
 from voltools_tpu_torch.ops.sampling import affine_sample
-from voltools_tpu_torch.utils import transform_matrix, translation_matrix
+from voltools_tpu_torch.utils import (rodrigues_matrix, transform_matrix,
+                                      translation_matrix)
 
 pytestmark = pytest.mark.cuda
 
@@ -454,3 +456,57 @@ def test_walk_takes_matrices_off_16_byte_boundaries(dev):
     for order in (1, 3):
         assert torch.equal(affine_resample(vol, m, order),
                            affine_resample(vol, m.clone(), order))
+
+
+def _registration_pair(shape, seed):
+    """A smooth volume and its copy through a hidden rigid transform."""
+    from scipy.ndimage import gaussian_filter
+    rng = np.random.default_rng(seed)
+    ref = gaussian_filter(rng.standard_normal(shape), 2.0)
+    ref = (ref / np.abs(ref).max()).astype(np.float32)
+    center = tuple((s - 1) / 2 for s in shape)
+    m = rodrigues_matrix(torch.tensor([0.05, -0.07, 0.06]), center).numpy()
+    m[:3, 3] -= np.asarray([1.4, -0.8, 0.6], np.float32)
+    mov = affine_sample(torch.from_numpy(ref), m, "linear").numpy()
+    return mov, ref
+
+
+@pytest.mark.parametrize("interpolation", ["linear", "filt_bspline"])
+def test_registration_on_cuda_matches_cpu(dev, interpolation):
+    """The same registration on the card and on the CPU: theta within 1e-3
+    rad and 1e-2 voxel, the first 5 losses within 1e-4 relative; the phase
+    correlation lands on the same grid point."""
+    mov, ref = _registration_pair((32, 32, 32), seed=12)
+    shift = phase_cross_correlation(ref, mov, upsample=10, device="cuda")
+    assert shift.is_cuda
+    np.testing.assert_allclose(shift.cpu().numpy(), phase_cross_correlation(
+        ref, mov, upsample=10, device="cpu").numpy(), atol=1e-6)
+    kw = dict(model="rigid", loss="ncc", levels=2, steps=60,
+              interpolation=interpolation)
+    gpu = register(mov, ref, device="cuda", **kw)
+    cpu = register(mov, ref, device="cpu", **kw)
+    np.testing.assert_allclose(gpu.params["w"], cpu.params["w"], atol=1e-3)
+    np.testing.assert_allclose(gpu.params["t"], cpu.params["t"], atol=1e-2)
+    np.testing.assert_allclose(gpu.loss_history[:5], cpu.loss_history[:5],
+                               rtol=1e-4)
+    assert gpu.loss_history[-1] < gpu.loss_history[0]
+
+
+def test_cpu_backend_with_a_cuda_device_raises(dev):
+    vol = np.zeros((8, 8, 8), np.float32)
+    for backend in ("scipy", "native"):
+        with pytest.raises(ValueError, match="device='cpu' only"):
+            vt.affine(vol, np.eye(4), device="cuda", cpu_backend=backend)
+
+
+def test_registration_result_apply_launches_kernel_a(dev):
+    mov, ref = _registration_pair((24, 24, 24), seed=13)
+    res = register(mov, ref, model="rigid", steps=20, device="cuda")
+    before = (affine_resample.launches, affine_slab.launches)
+    out = res.apply(mov, device="cuda", output="device")
+    assert (affine_resample.launches, affine_slab.launches) == (
+        before[0] + 1, before[1])
+    assert vt.last_dispatch()["impl"] == "cuda"
+    want = affine_sample(torch.from_numpy(mov).to(dev),
+                         torch.from_numpy(res.matrix).to(dev), "linear")
+    assert torch.equal(out, want)

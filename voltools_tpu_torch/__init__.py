@@ -3,15 +3,19 @@
 3-D affine transforms of volumes on an NVIDIA GPU: five interpolation modes
 (trilinear + four cubic B-spline variants), ``'constant'`` and ``'border'``
 edges, a one-shot functional API, a device-resident ``StaticVolume`` with
-batched transforms, and the tilt-series models (``models``: projector,
-weighted back-projection, SIRT).  The resampling runs in two hand-written
+batched transforms, the tilt-series models (``models``: projector,
+weighted back-projection, SIRT) and registration
+(``models.phase_cross_correlation``, ``models.register`` and its
+``models.RegistrationResult``).  The resampling runs in two hand-written
 CUDA kernels that compute the same function: ``csrc/affine_slab.cu``
 stages each output brick's source box in shared memory with TMA,
 ``csrc/affine_resample.cu`` gathers from global memory, and the planner
 gives each launch to the faster of the two for its matrices
 (``kernels/planner.py``).  Both are
 built with ``nvcc`` at first use; the plain torch versions serve
-``device='cpu'``.
+``device='cpu'``, and ``affine(..., device='cpu', cpu_backend='scipy' |
+'native')`` the JAX package's CPU backends (``native``: a C++ resampler
+built with ``g++`` at first use).
 
 The package imports torch, numpy and scipy only -- never JAX -- and probes
 no device at import.

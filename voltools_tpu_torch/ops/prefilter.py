@@ -23,11 +23,12 @@ Boundary handling:
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import numpy as np
 import torch
+
+from ..utils.general import full_fp32_matmul
 
 POLE = float(np.sqrt(3.0) - 2.0)
 # gain of the causal/anticausal cascade: (1-p)(1-1/p)
@@ -43,21 +44,6 @@ BOUNDARIES = ("mirror", "clamp")
 _P32 = np.float32(POLE)
 _MIRROR_TAIL = float(_P32 / (_P32 * _P32 - np.float32(1.0)))
 _CLAMP_TAIL = float(_P32 / (_P32 - np.float32(1.0)))
-
-
-@contextlib.contextmanager
-def _full_fp32_matmul():
-    """Run float32 matrix products in full float32 (no TF32), restoring the
-    caller's settings afterwards."""
-    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
-    prev_precision = torch.get_float32_matmul_precision()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
-        torch.set_float32_matmul_precision(prev_precision)
 
 
 def _causal_init(x, boundary):
@@ -155,7 +141,7 @@ def prefilter_fir(volume, axis: int, boundary: str = "mirror"):
     moved = torch.movedim(volume, axis, -1)
     # TF32 keeps ~3 decimal digits and breaks scipy parity of the filtered
     # coefficients: the product runs in full float32
-    with _full_fp32_matmul():
+    with full_fp32_matmul():
         out = torch.matmul(moved, w.T)
     return torch.movedim(out, -1, axis)
 

@@ -13,17 +13,23 @@ one for it, the walk kernel otherwise.  Both compute the same function,
 bit for bit.  The slab kernel reads a pitched volume
 (:mod:`~.kernels.layout`); a volume that is not is copied into one first.
 ``'cpu'`` runs the port's plain torch versions and is only taken when
-asked for.  With no CUDA device the default raises.
+asked for.  With no CUDA device the default raises.  ``affine(...,
+device='cpu', cpu_backend='scipy'|'native')`` takes the JAX package's CPU
+backends instead: ``scipy.ndimage.affine_transform`` or the multithreaded
+C++ resampler (:mod:`~.native`).
 
 Output semantics (as the JAX package's device paths): inputs are never
 mutated.  By default a host ``numpy.ndarray`` is returned.  Passing
 ``output=<numpy array>`` fills that array, after an exact shape and dtype
 check, and returns ``None``.  Passing ``output='device'`` returns the CUDA
-tensor without a device-to-host copy.
+tensor without a device-to-host copy.  The CPU backends keep the JAX
+package's CPU contract: given ``output=<numpy array>`` they fill it and
+return it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import numbers
 import threading
 from typing import Tuple, Union
@@ -31,6 +37,7 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
+from . import native
 from .kernels.affine_resample import affine_resample
 from .kernels.affine_slab import affine_slab
 from .kernels.layout import pitched
@@ -168,6 +175,50 @@ def _resample(vol: torch.Tensor, matrices: np.ndarray, interpolation: str,
     return result
 
 
+def _affine_cpu(volume, transform_m, interpolation, reshape, output,
+                backend: str, mode: str, cval: float):
+    """The JAX package's ``device='cpu'`` backends
+    (``voltools_tpu/transforms.py:112-165``): scipy or the native C++
+    resampler on host arrays, ``mode='border'`` forced onto the native one;
+    with ``output=<ndarray>`` the filled array is returned."""
+    if backend not in ("scipy", "native"):
+        raise ValueError(
+            f"cpu_backend must be 'scipy' or 'native', got {backend!r}")
+    if mode == "border" and backend != "native":
+        # scipy has no texture-border mode; the native backend implements it
+        if not native.available():
+            raise ValueError(
+                "mode='border' on device='cpu' requires the native backend "
+                "(cpu_backend='native'), which is unavailable on this host")
+        backend = "native"
+    if reshape:
+        pad_before, _, output_shape = compute_post_transform_dimensions(
+            volume.shape, transform_m)
+        # scipy pads implicitly via output_shape; shift the map so the
+        # original content lands pad_before voxels in
+        transform_m = transform_m @ translation_matrix(
+            pad_before, np.asarray(transform_m).dtype)
+        output_shape = tuple(int(d) for d in output_shape)
+    else:
+        output_shape = volume.shape
+    fill = output if isinstance(output, np.ndarray) else None
+    if fill is not None:
+        _check_shape(fill.shape, output_shape)
+
+    if backend == "native":
+        out = native.affine_transform(volume, transform_m, interpolation,
+                                      mode=mode, cval=cval,
+                                      out_shape=output_shape, output=fill)
+    else:
+        from scipy.ndimage import affine_transform
+        out = affine_transform(volume, transform_m,
+                               output_shape=output_shape, output=fill,
+                               order=spline_order(interpolation),
+                               prefilter=needs_prefilter(interpolation),
+                               cval=cval)
+    return fill if fill is not None else out
+
+
 def _check_output(output, device: str):
     if output is None or isinstance(output, np.ndarray):
         return
@@ -189,14 +240,19 @@ def affine(volume,
            output=None,
            device: str = "cuda",
            mode: str = "constant",
-           cval: float = 0.0):
+           cval: float = 0.0,
+           cpu_backend: str = None):
     """Apply a 4x4 pull-back matrix to a 3-D volume (numpy array or tensor).
 
     The chain is the prefilter (``filt_bspline*`` only), then one launch of
     the kernel the planner chooses -- the one-shot program of the JAX
     package (``pallas_walk.py:1874-1892``).  ``reshape=True`` samples onto the
     enlarged grid that holds the whole transformed volume, through the
-    pad-shifted matrix."""
+    pad-shifted matrix.
+
+    ``cpu_backend`` (``device='cpu'`` only): ``None`` runs the plain torch
+    version; ``'scipy'`` or ``'native'`` the JAX package's CPU backends,
+    which return the filled ``output`` array when given one."""
     if volume.ndim != 3:
         raise ValueError("Expected a 3D array")
     if interpolation not in AVAILABLE_INTERPOLATIONS:
@@ -206,6 +262,19 @@ def affine(volume,
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     dev = _device(device)
     _check_output(output, device)
+    if cpu_backend is not None and dev.type != "cpu":
+        raise ValueError(
+            f"cpu_backend={cpu_backend!r} applies to device='cpu' only, "
+            f"not {device!r}")
+
+    timer = ProfileTimer(dev) if profile else contextlib.nullcontext()
+    if cpu_backend is not None:
+        if isinstance(volume, torch.Tensor):
+            volume = volume.detach().cpu().numpy()
+        with timer:
+            return _affine_cpu(volume, np.asarray(transform_m),
+                               interpolation, reshape, output, cpu_backend,
+                               mode, cval)
 
     transform_m = np.asarray(transform_m, dtype=np.float32)
     out_shape = tuple(int(d) for d in volume.shape)
@@ -218,10 +287,7 @@ def affine(volume,
     if isinstance(output, np.ndarray):
         _check_shape(output.shape, out_shape)
 
-    timer = ProfileTimer(dev) if profile else None
-    if timer:
-        timer.__enter__()
-    try:
+    with timer:
         vol = _as_tensor(volume, dev).contiguous()
         if needs_prefilter(interpolation):
             vol = bspline_prefilter(vol)
@@ -230,9 +296,6 @@ def affine(volume,
         if isinstance(output, str):
             return result
         return _finish(result.cpu().numpy(), output)
-    finally:
-        if timer:
-            timer.__exit__(None, None, None)
 
 
 def transform(volume,

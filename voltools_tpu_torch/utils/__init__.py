@@ -11,6 +11,7 @@ from .matrices import (
 from .general import (
     ProfileTimer,
     compute_post_transform_dimensions,
+    full_fp32_matmul,
     get_available_devices,
     resolve_device,
 )
@@ -26,6 +27,7 @@ __all__ = [
     "translation_matrix",
     "ProfileTimer",
     "compute_post_transform_dimensions",
+    "full_fp32_matmul",
     "get_available_devices",
     "resolve_device",
 ]

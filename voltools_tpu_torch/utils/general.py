@@ -9,10 +9,14 @@ The PyTorch port's counterpart of ``voltools_tpu/utils/general.py``:
   malformed or absent ordinals.
 * ``compute_post_transform_dimensions`` re-derives the ``reshape=True``
   bounding-box geometry (reference ``general.py:92-123``).
+* ``full_fp32_matmul`` runs a block's float32 matrix products in full
+  float32 (no TF32), the analogue of the JAX package's
+  ``precision=HIGHEST``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Tuple
 
@@ -85,6 +89,21 @@ def compute_post_transform_dimensions(
     overhang = np.maximum(moved - dims[:, None], 0).max(axis=1)
     new_dims = pad_before + dims + overhang
     return pad_before[:3], overhang[:3], new_dims[:3]
+
+
+@contextlib.contextmanager
+def full_fp32_matmul():
+    """Run float32 matrix products in full float32 (no TF32), restoring the
+    caller's settings afterwards."""
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    prev_precision = torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+        torch.set_float32_matmul_precision(prev_precision)
 
 
 class ProfileTimer:

@@ -195,6 +195,7 @@ def rodrigues_matrix(w, center=None):
         # T(-c) @ R @ T(c) (pull-back composition, as transform_matrix)
         t = c - R @ c
     top = torch.cat([R, t[:, None]], dim=1)
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=torch.float32,
-                          device=w.device)
+    # the last row from eye, made on the device: a tensor from host data
+    # would be a copy that waits for the device's queue (a host sync)
+    bottom = torch.eye(4, dtype=torch.float32, device=w.device)[3:]
     return torch.cat([top, bottom], dim=0)
