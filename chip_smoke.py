@@ -94,7 +94,21 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    host (timed), then ``affine(..., device='cpu', cpu_backend='native')``
    and ``'scipy'`` on the main path's 250^3 volume, 2 of its rotations,
    linear and ``filt_bspline``, each held against A's output (1e-4 off
-   knife edges) and timed on the host, beside the host CPU's model.
+   knife edges) and timed on the host, beside the host CPU's model;
+10. sharded -- the main path's volume on ``Mesh([cuda:0] * 4)``, four
+   shards on the one card: ``ShardedVolume`` 'linear' and 'filt_bspline'
+   through the halo body (a translation and a small rotation), the gather
+   and stream bodies (the first 4 random rotations) and one 'border',
+   cval 1.5 case; a 2-shard mesh's sharded prefilter; ``make_mesh()``;
+   ``sharded_affine_batch`` of the 16 rotations in both orders (to A) and
+   the reconstruction's 41 tilts, 11 a shard (to B), with each shard's
+   ``last_dispatch()``; ``wbp_reconstruct(mesh=)`` in both modes and
+   ``sirt_reconstruct(mesh=)``.  Both counters are set to 0 before each
+   call and must then read what ``planner.route`` gives per shard; each
+   result is held against the single-device call and the plain version
+   (SHARD_ATOL, SHARD_STREAM_ATOL, RECON_RTOL).  Times per call beside
+   the single-device ones, the device operations of one call, and the
+   peak memory of one rotation through 'stream' and 'gather'.
 
 The line before the last is the ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -162,6 +176,21 @@ REG_LOSS_RTOL = 1e-4               # the first 5 losses
 # steps per timed register call, for the slope of an Adam step per level
 REG_TIMED_STEPS = (5, 25)
 CPU_BACKEND_ROTATIONS = 2          # phase 9: rotations of the main path
+# phase 10: a mesh of SHARDS shards on the one card (a device may repeat in
+# a mesh).  A shard's matrix is the single-device one with its slab shift
+# added to column 3 in float32, so its coordinates round differently, by a
+# few ulps of the coordinate: tests/test_parallel.py holds the halo and
+# gather bodies to 3e-5 on extents below 64 (coordinate ulp 3.8e-6); at
+# 250^3 the ulp is 4x that (1.5e-5 in [128, 256)), and so is the atol, off
+# knife edges.  The ring stream keeps that file's 5e-4 for full 3-D
+# rotations (off knife edges), the sharded prefilter its 2e-5
+SHARDS = 4
+N_SHARD_ROT = 4                    # the first of the main path's rotations
+STREAM_CUBIC_ROTATIONS = 4         # of those, through the cubic stream
+SHARD_ATOL = 4 * 3e-5
+SHARD_STREAM_ATOL = 5e-4
+SHARD_PREFILTER_ATOL = 2e-5
+SHARD_SIRT_ITERATIONS = 3
 # the matrices of tests/test_pallas.py, on its (40, 48, 56) volume
 PALLAS_SHAPE = (40, 48, 56)
 PALLAS_CENTER = (19.5, 23.5, 27.5)
@@ -181,9 +210,10 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-def knife_mask(torch, m, shape, device):
-    """True where a source coordinate lies within KNIFE_TOL of an integer
-    (rows that are exactly integral have no knife edge)."""
+def knife_mask(torch, m, shape, device, half=False):
+    """True where a source coordinate lies within KNIFE_TOL of an integer,
+    and with ``half`` of a half-integer too (the 'border' discard band);
+    rows that are exactly integral have no knife edge."""
     mm = torch.as_tensor(m, dtype=torch.float64, device=device)
     grids = [torch.arange(n, dtype=torch.float64, device=device)
              for n in shape]
@@ -197,14 +227,16 @@ def knife_mask(torch, m, shape, device):
             continue
         s = row[0] * i + row[1] * j + row[2] * k + row[3]
         near |= (s - torch.round(s)).abs() < KNIFE_TOL
+        if half:
+            near |= (s - torch.round(s + 0.5) + 0.5).abs() < KNIFE_TOL
     return near
 
 
-def errors(torch, got, want, m):
+def errors(torch, got, want, m, half=False):
     """(max error off knife edges, max error everywhere)."""
     diff = (got.double() - want.double()).abs()
     assert torch.isfinite(got).all(), "non-finite kernel output"
-    near = knife_mask(torch, m, tuple(got.shape), got.device)
+    near = knife_mask(torch, m, tuple(got.shape), got.device, half)
     return (float(torch.where(near, 0.0, diff).max()), float(diff.max()))
 
 
@@ -330,6 +362,18 @@ def device_ops(torch, fn):
     syncs = sum(e.name.endswith("Synchronize") for e in prof.events())
     return (len(ops), sum(e.time_range.elapsed_us() for e in ops) / 1e3,
             syncs)
+
+
+def host_syncs(torch, fn):
+    """The host's waits on the device in one call of ``fn``: CUDA runtime
+    calls named ...Synchronize, as torch.profiler records them, the
+    closing synchronize included."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.name.endswith("Synchronize") for e in prof.events())
 
 
 def time_ms(torch, fn, reps, warmup=None):
@@ -1314,14 +1358,329 @@ def main():
          gxx_flags=" ".join(native.GXX_FLAGS), atol=SCIPY_ATOL, calls=rows,
          note="host times on the card's host CPU, not the card's")
 
+    # ---------------------------------------------------- 10. sharded
+    from voltools_tpu_torch.parallel import (Mesh, ShardedVolume,
+                                             halo_for_matrix, make_mesh,
+                                             sharded_affine_batch)
+    from voltools_tpu_torch.parallel import sharded as sharded_module
+
+    mesh = Mesh([dev] * SHARDS)
+    local_ms = {
+        "translate_5_0_0": translation_matrix((5.0, 0.0, 0.0)),
+        "sxyz_3_-4_5": transform_matrix(rotation=(3, -4, 5),
+                                        rotation_order="sxyz",
+                                        center=center)}
+    local_ms = {k: np.asarray(v, np.float32) for k, v in local_ms.items()}
+
+    def shard_routes(sv, m):
+        """The body a sharded call of ``m`` takes, and what planner.route
+        gives for each shard's launch, from the shard's own matrix (the
+        output's slab shift, and the source's for the halo body) and
+        source: the extended slab or the gathered volume."""
+        shards = sv.mesh.size
+        local = -(-SIZE // shards)
+        halo = halo_for_matrix(big, m, sv.interpolation)
+        if halo is not None and halo + 1 > local:
+            halo = None
+        body = "halo" if halo is not None else sv.global_strategy
+        if body == "stream":
+            return body, []
+        routes = []
+        for i in range(shards):
+            start = np.float32(i * local)
+            mi = m.copy()
+            mi[:, 3] += m[:, 0] * start
+            src = (shards * local,) + big[1:]
+            if halo is not None:
+                mi[0, 3] += np.float32(halo) - start
+                src = (local + 2 * halo,) + big[1:]
+            routes.append(planner.route(mi, src, sv.interpolation, sv.mode,
+                                        (local,) + big[1:]))
+        return body, routes
+
+    def counted(routes):
+        n = {S.NAME: 0, K.NAME: 0}
+        for r in routes:
+            n[S.NAME if r.plan is not None else K.NAME] += 1
+        return n
+
+    shard_launches = {S.NAME: 0, K.NAME: 0}
+
+    def launched(fn, routes):
+        """Run ``fn`` with both counters set to 0 just before; the counts
+        just after must be what ``routes`` give; add them to the phase's."""
+        torch.cuda.synchronize()
+        walk.launches = slab.launches = 0
+        result = fn()
+        torch.cuda.synchronize()
+        got = {S.NAME: slab.launches, K.NAME: walk.launches}
+        assert got == counted(routes), (got, counted(routes))
+        for k in got:
+            shard_launches[k] += got[k]
+        return result
+
+    def kernel_of(route):
+        return "slab" if route.plan is not None else "walk"
+
+    rows = []
+    worst_sharded = {"halo": 0.0, "gather": 0.0, "stream": 0.0}
+    t0 = time.perf_counter()
+    single_border = vt.StaticVolume(vol_np, "filt_bspline", device="cuda",
+                                    mode="border", cval=1.5)
+    # (name, single-device volume, ShardedVolume keywords, cases)
+    configs = []
+    for interp, single in (("linear", sv_lin), ("filt_bspline", sv_cub)):
+        n_stream = N_SHARD_ROT if interp == "linear" \
+            else STREAM_CUBIC_ROTATIONS
+        cases = [("stream", name, m) for name, m in local_ms.items()]
+        cases += [("gather", f"random_{i}", rots[i])
+                  for i in range(N_SHARD_ROT)]
+        cases += [("stream", f"random_{i}", rots[i])
+                  for i in range(n_stream)]
+        configs.append((interp, single, dict(interpolation=interp), cases))
+    configs.append(("filt_bspline_border_cval_1.5", single_border,
+                    dict(interpolation="filt_bspline", mode="border",
+                         cval=1.5),
+                    [("stream", "sxyz_3_-4_5", local_ms["sxyz_3_-4_5"])]))
+    svs = {}
+    for name, single, kw, cases in configs:
+        for strategy in sorted({c[0] for c in cases}):
+            svs[name, strategy] = ShardedVolume(
+                vol_np, mesh=mesh, global_strategy=strategy, **kw)
+        for strategy, mname, m in cases:
+            sv = svs[name, strategy]
+            body, routes = shard_routes(sv, m)
+            slabs = launched(lambda: sv.affine(m, output="device"), routes)
+            assert len(slabs) == SHARDS and all(
+                x.device == dev for x in slabs), [x.device for x in slabs]
+            got = torch.cat(slabs)
+            assert got.shape == big
+            want = single.affine(m, output="device")
+            plain = affine_sample(single.data, torch.from_numpy(m).to(dev),
+                                  interp_of[spline_order(sv.interpolation)],
+                                  sv.mode, sv.cval, prefiltered=True)
+            half = sv.mode == "border"
+            vs_single = errors(torch, got, want, m, half)
+            vs_plain = errors(torch, got, plain, m, half)
+            tol = SHARD_STREAM_ATOL if body == "stream" else SHARD_ATOL
+            assert max(vs_single[0], vs_plain[0]) <= tol, (
+                name, body, mname, vs_single, vs_plain)
+            worst_sharded[body] = max(worst_sharded[body], vs_single[0],
+                                      vs_plain[0])
+            rows.append({"volume": name, "body": body, "matrix": mname,
+                         "kernels": [kernel_of(r) for r in routes],
+                         "max_abs_err_vs_single": vs_single[0],
+                         "max_abs_err_vs_plain": vs_plain[0],
+                         "all_voxels_vs_single": vs_single[1], "atol": tol,
+                         "equal_to_single": bool(torch.equal(got, want))})
+            del slabs, got, want, plain
+
+    # a 2-shard mesh: 250 planes divide it and the slabs are thicker than
+    # the FIR's 18 planes, so construction prefilters shard by shard
+    sv2 = ShardedVolume(vol_np, "filt_bspline", mesh=Mesh([dev] * 2))
+    prefilter_err = float((torch.cat(sv2.data) - sv_cub.data).abs().max())
+    assert prefilter_err <= SHARD_PREFILTER_ATOL, prefilter_err
+    m = local_ms["sxyz_3_-4_5"]
+    body, routes = shard_routes(sv2, m)
+    got = torch.cat(launched(lambda: sv2.affine(m, output="device"), routes))
+    two_shard_err = errors(torch, got, sv_cub.affine(m, output="device"),
+                           m)[0]
+    assert two_shard_err <= SHARD_ATOL, two_shard_err
+    # make_mesh(): one shard a CUDA device (one on this machine); through
+    # the gather body, the one launch is StaticVolume.affine's own
+    sv1 = ShardedVolume(vol_np, "linear", mesh=make_mesh(),
+                        global_strategy="gather")
+    body1, routes = shard_routes(sv1, rots[0])
+    got = torch.cat(launched(lambda: sv1.affine(rots[0], output="device"),
+                             routes))
+    want = sv_lin.affine(rots[0], output="device")
+    make_mesh_err = errors(torch, got, want, rots[0])[0]
+    assert make_mesh_err <= SHARD_ATOL, make_mesh_err
+    make_mesh_equal = bool(torch.equal(got, want))
+    del sv2, sv1, got, want
+
+    # sharded_affine_batch: the 16 random rotations in both orders, and
+    # the reconstruction's 41 tilts (44 after padding, 11 a shard), each
+    # share one launch; every launch's last_dispatch() is recorded
+    dispatches = []
+    resample = sharded_module._resample
+
+    def recording(*args, **kwargs):
+        out = resample(*args, **kwargs)
+        dispatches.append(vt.last_dispatch())
+        return out
+
+    batch_rows = []
+    sharded_module._resample = recording
+    try:
+        for bname, ms, interp, single in (
+                ("random_linear", rots, "linear", sv_lin),
+                ("random_filt_bspline", rots, "filt_bspline", sv_cub),
+                ("recon_tilt_linear", rms, "linear", sv_lin)):
+            padded = np.concatenate(
+                [ms, np.repeat(ms[-1:], (-len(ms)) % SHARDS, axis=0)])
+            per = len(padded) // SHARDS
+            routes = [planner.route(padded[i * per:(i + 1) * per], big,
+                                    interp) for i in range(SHARDS)]
+            del dispatches[:]
+            stacks = launched(lambda: sharded_affine_batch(
+                vol_dev, ms, interp, mesh=mesh, output="device"), routes)
+            assert [d["impl"] for d in dispatches] == ["cuda"] * SHARDS
+            assert [d["variant"] is not None for d in dispatches] == [
+                r.plan is not None for r in routes], dispatches
+            got = torch.cat(stacks)
+            want = single.affine_batch(ms, output="device")
+            assert got.shape == want.shape == (len(ms),) + big
+            errs = [errors(torch, got[i], want[i], ms[i])[0]
+                    for i in range(len(ms))]
+            plain_errs = [errors(torch, got[i], affine_sample(
+                single.data, torch.from_numpy(ms[i]).to(dev),
+                interp_of[spline_order(interp)], prefiltered=True),
+                ms[i])[0] for i in range(len(ms))]
+            assert max(errs + plain_errs) <= SHARD_ATOL, (bname, max(errs),
+                                                          max(plain_errs))
+            batch_rows.append({
+                "set": bname, "matrices": len(ms), "per_shard": per,
+                "kernels": [kernel_of(r) for r in routes],
+                "last_dispatch": [d["reason"] for d in dispatches],
+                "max_abs_err_vs_single": max(errs),
+                "max_abs_err_vs_plain": max(plain_errs),
+                "equal_to_single": bool(torch.equal(got, want))})
+            del stacks, got, want
+    finally:
+        sharded_module._resample = resample
+
+    # the mesh modes of the reconstructions on the tilt phase's series
+    recon_rows = {}
+    wbp_one = wbp_reconstruct(rprojs, rms, big, device="cuda",
+                              output="device")
+    scale = float(wbp_one.abs().max())
+    for mesh_shard in ("tilts", "volume"):
+        res = launched(lambda: wbp_reconstruct(
+            rprojs, rms, big, mesh=mesh, mesh_shard=mesh_shard,
+            output="device"), [])
+        got = res if mesh_shard == "tilts" else torch.cat(res)
+        err = float((got - wbp_one).abs().max()) / scale
+        assert err <= RECON_RTOL, (mesh_shard, err)
+        recon_rows[f"wbp_{mesh_shard}"] = err
+    sirt_ms = {}
+    sirt_ms[SHARD_SIRT_ITERATIONS], res = event_ms(torch, lambda: launched(
+        lambda: sirt_reconstruct(rprojs, rms, big,
+                                 iterations=SHARD_SIRT_ITERATIONS,
+                                 mesh=mesh, output="device"), []))
+    sirt_one = sirt_reconstruct(rprojs, rms, big,
+                                iterations=SHARD_SIRT_ITERATIONS,
+                                device="cuda", output="device",
+                                _plain_forward=True)
+    got = torch.cat(res)
+    assert got.shape == big and torch.isfinite(got).all()
+    err = float((got - sirt_one).abs().max()) / float(sirt_one.abs().max())
+    assert err <= RECON_RTOL, ("sirt", err)
+    recon_rows["sirt"] = err
+    del res, got, sirt_one
+    assert shard_launches[S.NAME] > 0 and shard_launches[K.NAME] > 0, \
+        shard_launches
+    assert S.overflows(dev) == 0
+    check_seconds = time.perf_counter() - t0
+
+    # times: CUDA events after warm-up
+    st = {}
+    for name, single, cases in ((n, s, c) for n, s, _, c in configs[:2]):
+        order_name = "linear" if name == "linear" else "cubic"
+        for body, strategy, m in (
+                ("halo", "stream", local_ms["sxyz_3_-4_5"]),
+                ("gather", "gather", rots[0]),
+                ("stream", "stream", rots[0])):
+            sv = svs[name, strategy]
+            reps = 2 if body == "stream" else 10
+            st[f"{body}_{order_name}_ms"] = time_ms(
+                torch, lambda: sv.affine(m, output="device"), reps=reps,
+                warmup=1)
+            st[f"static_volume_affine_{order_name}_same_matrix_ms_"
+               f"{body}"] = time_ms(
+                torch, lambda: single.affine(m, output="device"), reps=10)
+    # device operations a call runs and the ms they keep the device busy
+    # (torch.profiler), one linear call a body; the host's waits on the
+    # device in it, less those of a call that only fills one float (the
+    # closing synchronize and the profiler's own), must be none: no body
+    # waits on the device before it returns
+    base = host_syncs(torch, lambda: torch.zeros(1, device=dev))
+    for body, strategy, m in (("halo", "stream", local_ms["sxyz_3_-4_5"]),
+                              ("gather", "gather", rots[0]),
+                              ("stream", "stream", rots[0])):
+        sv = svs["linear", strategy]
+        ops = device_ops(torch, lambda: sv.affine(m, output="device"))
+        st[f"{body}_linear_device_ops"], st[f"{body}_linear_busy_ms"] = (
+            ops[:2] if ops else (None, None))
+        st[f"{body}_linear_host_syncs"] = host_syncs(
+            torch, lambda: sv.affine(m, output="device")) - base
+        assert st[f"{body}_linear_host_syncs"] == 0, (body, base)
+    for strategy in ("stream", "gather"):
+        sv = svs["linear", strategy]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = sv.affine(rots[0], output="device")
+        torch.cuda.synchronize()
+        st[f"{strategy}_peak_mib_above_resident"] = (
+            torch.cuda.max_memory_allocated(dev) - before) / 2 ** 20
+        del res
+    st["resident_volume_mib"] = 4 * SIZE ** 3 / 2 ** 20
+    for bname, ms, interp, single in (
+            ("random_linear", rots, "linear", sv_lin),
+            ("random_filt_bspline", rots, "filt_bspline", sv_cub),
+            ("recon_tilt_linear", rms, "linear", sv_lin)):
+        st[f"batch_{bname}_ms_per_matrix"] = time_ms(
+            torch, lambda: sharded_affine_batch(vol_dev, ms, interp,
+                                                mesh=mesh, output="device"),
+            reps=2, warmup=1) / len(ms)
+        st[f"static_volume_affine_batch_{bname}_ms_per_matrix"] = time_ms(
+            torch, lambda: single.affine_batch(ms, output="device"),
+            reps=2, warmup=1) / len(ms)
+    for mesh_shard in ("tilts", "volume"):
+        st[f"wbp_{mesh_shard}_ms"] = time_ms(torch, lambda: wbp_reconstruct(
+            rprojs, rms, big, mesh=mesh, mesh_shard=mesh_shard,
+            output="device"), reps=2, warmup=1)
+    st["wbp_single_ms"] = time_ms(torch, lambda: wbp_reconstruct(
+        rprojs, rms, big, device="cuda", output="device"), reps=2, warmup=1)
+    sirt_ms[1] = event_ms(torch, lambda: sirt_reconstruct(
+        rprojs, rms, big, iterations=1, mesh=mesh, output="device"))[0]
+    st["sirt_mesh_ms_per_iteration"] = (
+        sirt_ms[SHARD_SIRT_ITERATIONS] - sirt_ms[1]) / (
+        SHARD_SIRT_ITERATIONS - 1)
+    st["sirt_mesh_setup_ms"] = sirt_ms[1] - st["sirt_mesh_ms_per_iteration"]
+    one = [event_ms(torch, lambda n=n: sirt_reconstruct(
+        rprojs, rms, big, iterations=n, device="cuda",
+        output="device"))[0] for n in (1, SHARD_SIRT_ITERATIONS)]
+    st["sirt_single_ms_per_iteration"] = (one[1] - one[0]) / (
+        SHARD_SIRT_ITERATIONS - 1)
+    emit("sharded", shape=list(big), shards=SHARDS,
+         mesh=[str(d) for d in mesh.devices], local_planes=-(-SIZE // SHARDS),
+         launches=shard_launches, check_seconds=check_seconds,
+         volume_calls=rows, max_abs_err_by_body=worst_sharded,
+         two_shard_prefilter_max_abs_err=prefilter_err,
+         two_shard_affine_max_abs_err=two_shard_err,
+         make_mesh={"devices": [str(d) for d in make_mesh().devices],
+                    "body": body1, "max_abs_err_vs_single": make_mesh_err,
+                    "equal_to_single": make_mesh_equal},
+         batch_calls=batch_rows, recon_rel_err_vs_single=recon_rows,
+         recon_rtol=RECON_RTOL, sirt_iterations=SHARD_SIRT_ITERATIONS,
+         overflows=S.overflows(dev),
+         atol={"halo_gather": SHARD_ATOL, "stream": SHARD_STREAM_ATOL,
+               "prefilter": SHARD_PREFILTER_ATOL},
+         times=st, method="CUDA events after warm-up; memory by "
+         "max_memory_allocated after reset_peak_memory_stats, above what "
+         "was allocated before the call, the result included")
+
     main_tilt = {k: main_launches[k] + tilt_launches[k] + reg_launches[k]
-                 for k in main_launches}
+                 + shard_launches[k] for k in main_launches}
     kernels = [{
         "name": S.NAME, "route": "cuda", "source": S.SOURCE,
         "replaces": S.REPLACES, "launches": main_tilt[S.NAME],
         "launches_by_path": {"main": main_launches[S.NAME],
                              "tilt": tilt_launches[S.NAME],
-                             "registration": reg_launches[S.NAME]},
+                             "registration": reg_launches[S.NAME],
+                             "sharded": shard_launches[S.NAME]},
         "max_abs_err": max(slab_worst[1], slab_worst[3]),
         "ms": t["recon_tilt_linear_batch_slab_ms_per_matrix"],
         "plain_ms": t["recon_tilt_linear_plain_ms"],
@@ -1350,7 +1709,8 @@ def main():
         "replaces": K.REPLACES, "launches": main_tilt[K.NAME],
         "launches_by_path": {"main": main_launches[K.NAME],
                              "tilt": tilt_launches[K.NAME],
-                             "registration": reg_launches[K.NAME]},
+                             "registration": reg_launches[K.NAME],
+                             "sharded": shard_launches[K.NAME]},
         "max_abs_err": max(worst[1], worst[3], main_err[1], main_err[3]),
         "ms": t["random_linear_walk_ms"],
         "plain_ms": t["random_linear_plain_ms"],

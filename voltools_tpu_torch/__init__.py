@@ -4,9 +4,11 @@
 (trilinear + four cubic B-spline variants), ``'constant'`` and ``'border'``
 edges, a one-shot functional API, a device-resident ``StaticVolume`` with
 batched transforms, the tilt-series models (``models``: projector,
-weighted back-projection, SIRT) and registration
-(``models.phase_cross_correlation``, ``models.register`` and its
-``models.RegistrationResult``).  The resampling runs in two hand-written
+weighted back-projection, SIRT, each reconstruction also over a device
+mesh) and registration (``models.phase_cross_correlation``,
+``models.register`` and its ``models.RegistrationResult``), and several
+devices (``parallel``: a ``Mesh`` of devices, which may repeat, a
+``ShardedVolume`` sharded along z and ``sharded_affine_batch``).  The resampling runs in two hand-written
 CUDA kernels that compute the same function: ``csrc/affine_slab.cu``
 stages each output brick's source box in shared memory with TMA,
 ``csrc/affine_resample.cu`` gathers from global memory, and the planner
@@ -33,7 +35,7 @@ from .transforms import (
 )
 from .ops.interpolation import AVAILABLE_INTERPOLATIONS
 from .volume import StaticVolume
-from . import models, ops, utils
+from . import models, ops, parallel, utils
 
 
 def __getattr__(name):
@@ -57,5 +59,6 @@ __all__ = [
     "AVAILABLE_DEVICES",
     "models",
     "ops",
+    "parallel",
     "utils",
 ]

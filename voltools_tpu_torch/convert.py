@@ -1,5 +1,5 @@
-"""Carry a JAX-package ``StaticVolume``'s or ``TiltSeriesProjector``'s state
-over to the port.
+"""Carry a JAX-package ``StaticVolume``'s, ``TiltSeriesProjector``'s or
+``ShardedVolume``'s state over to the port.
 
 The JAX package's resident data is already converted (B-spline coefficients
 for ``filt_bspline*``).  :func:`from_state` builds a port
@@ -15,6 +15,9 @@ resident state.  They take plain numpy, and import nothing of JAX::
         np.asarray(proj.data), proj.shape, proj.interpolation,
         proj.projection_axis, proj.rotation_order, proj._mode,
         device="cuda")
+    shv_port = sharded_from_state(np.asarray(shv.data), shv.shape,
+                                  shv.interpolation, shv.mode, shv.cval,
+                                  mesh, shv.global_strategy)
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 
 from .models import TiltSeriesProjector
+from .parallel import ShardedVolume
 from .volume import StaticVolume
 
 
@@ -54,3 +58,23 @@ def projector_from_state(data, shape, interpolation: str,
     return TiltSeriesProjector._from_coefficients(
         _state(data, shape), interpolation, projection_axis, rotation_order,
         device, mode)
+
+
+def sharded_from_state(data, shape, interpolation: str,
+                       mode: str = "constant", cval: float = 0.0, mesh=None,
+                       global_strategy: str = "stream") -> ShardedVolume:
+    """A port ``ShardedVolume`` on ``mesh`` holding a JAX ``ShardedVolume``'s
+    state: ``data`` is its padded, already prefiltered array, ``shape`` its
+    true extent.  The planes past ``shape[0]`` are the JAX mesh's padding:
+    they are dropped and the true extent padded anew for ``mesh`` by the
+    same rule (mirror, or zeros for 'border'), so a mesh of any size
+    serves."""
+    data = np.asarray(data, dtype=np.float32)
+    shape = tuple(int(s) for s in shape)
+    if (data.ndim != 3 or len(shape) != 3 or data.shape[0] < shape[0]
+            or data.shape[1:] != shape[1:]):
+        raise ValueError(
+            f"state {data.shape} does not hold a volume of shape {shape}")
+    return ShardedVolume._from_coefficients(
+        data[:shape[0]], shape, interpolation, mesh, mode, cval,
+        global_strategy)
