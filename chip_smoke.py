@@ -11,10 +11,11 @@ It imports torch, numpy, scipy and the port only (never JAX, never
 
 1. card   -- the ``nvidia-smi`` name and power limit, torch, CUDA and nvcc
    versions;
-2. build  -- ``nvcc`` builds both kernels, ``csrc/affine_resample.cu`` (the
-   walk port, A: warp patches, a cubic interior fast path and float4 rows)
-   and ``csrc/affine_slab.cu`` (the slab port, B), in parallel, each
-   timed, with registers and spills;
+2. build  -- ``nvcc`` builds the three kernels, ``csrc/affine_resample.cu``
+   (the walk port, A: warp patches, a cubic interior fast path and float4
+   rows), ``csrc/affine_slab.cu`` (the slab port, B) and
+   ``csrc/backproject.cu`` (the reconstructions' back-projection, C), in
+   parallel, each timed, with registers and spills;
 3. parity -- A against its plain torch version on the card, bit for bit
    (``torch.equal``; and atol 5e-5 off knife edges, as before): order {1,
    3} x mode {constant, border} x cval {0, 1.5}, on 250^3, (40, 48, 56) and
@@ -38,6 +39,13 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    axis and the random set of phase 3 at 250^3, the extent-1 shapes, a
    batch and an into-buffer write; each launch plans by the box rule
    (``slab_plan``), and B's overflow counter stays 0;
+4b. parity_backproject -- C against its plain version on the card, bit
+   for bit (``torch.equal``), on both of its paths: the reconstruction's
+   41-tilt series at 250^3 (projection axis 0), series along projection
+   axes 1 and 2, the general path (``_force_general``, and a series that
+   takes it by its geometry), an odd shape (37, 50, 61), one tilt, a
+   volume shard's slab-shifted matrices and rows partly and wholly off
+   the projection;
 5. main   -- the main path at 250^3 float32, through the public API:
    ``StaticVolume`` 'linear' and 'filt_bspline' on 'cuda', ``.affine`` over
    16 random rotations and ``.affine_batch`` of the same 16, and the
@@ -52,11 +60,14 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    then ``wbp_reconstruct`` and ``sirt_reconstruct`` (30 iterations) of a
    linear series at position 0, the geometry of
    ``examples/reconstruction.py``, with the counters set to 0 before and
-   read after, each equal to the planner's; each kernel must have run on
-   one of the two paths.  Projections are held against the plain version
-   (rotate, then sum) and one tilt against
-   ``scipy.ndimage.affine_transform(...).sum(axis=0)``; WBP and SIRT
-   against the same functions with the plain forward;
+   read after, A's and B's each equal to the planner's, C's 1 per WBP and
+   1 + iterations per SIRT; each kernel must have run on one of the two
+   paths.  Projections are held against the plain version (rotate, then
+   sum) and one tilt against
+   ``scipy.ndimage.affine_transform(...).sum(axis=0)``; WBP and SIRT (3
+   iterations) against the same functions with the plain forward and C's
+   plain version (RECON_RTOL), WBP and the 30-iteration SIRT bit for bit
+   against C's plain version alone (``_plain_adjoint=True``);
 7. times  -- CUDA-event times after warm-up of B and A on the same
    matrices (the projector's and the reconstruction's tilt series and the
    16 random rotations, single and batched, linear and cubic; A with the
@@ -73,11 +84,15 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    planner's ``route`` and ``walk_patch``; ``StaticVolume.affine`` per
    rotation, the
    prefilters, the
-   one-shot calls, the pitched copy, the projector, WBP and SIRT, and the
-   plain versions, beside each kernel's bound (the larger of its bytes over
-   the memory rate and its least arithmetic, for this run's matrices, over
-   the fp32 rate) and ``torch.nn.functional.grid_sample`` (timed only; the
-   port never calls it);
+   one-shot calls, the pitched copy, the projector, WBP and SIRT (with C
+   and with its plain version), C alone on both paths, and the plain
+   versions, beside each kernel's bound (the larger of its bytes over the
+   memory rate and its least arithmetic, for this run's matrices, over the
+   fp32 rate) and ``torch.nn.functional.grid_sample`` (timed only; the
+   port never calls it: for C, of the 41 projections at every voxel's
+   (rows, cols), then summed over the tilts); WBP at a tomogram's size,
+   (256, 512, 512) from 41 projections of (512, 512), C against its plain
+   version, bit for bit and timed;
 8. registration -- ``examples/registration.py``'s blob phantom at 128^3
    (a large subtomogram box; the example uses 64^3), moved by its hidden
    rigid transform through the port's ``rodrigues_matrix`` and plain
@@ -103,10 +118,13 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    ``sharded_affine_batch`` of the 16 rotations in both orders (to A) and
    the reconstruction's 41 tilts, 11 a shard (to B), with each shard's
    ``last_dispatch()``; ``wbp_reconstruct(mesh=)`` in both modes and
-   ``sirt_reconstruct(mesh=)``.  Both counters are set to 0 before each
-   call and must then read what ``planner.route`` gives per shard; each
-   result is held against the single-device call and the plain version
-   (SHARD_ATOL, SHARD_STREAM_ATOL, RECON_RTOL).  Times per call beside
+   ``sirt_reconstruct(mesh=)``.  The counters are set to 0 before each
+   call and must then read what ``planner.route`` gives per shard, C's
+   one launch per shard for each mesh WBP and shards x (1 + iterations)
+   for the mesh SIRT; each result is held against the single-device call
+   and the plain version (SHARD_ATOL, SHARD_STREAM_ATOL, RECON_RTOL), the
+   mesh reconstructions bit for bit against C's plain version
+   (``_plain_adjoint=True``; the mesh SIRT at one iteration).  Times per call beside
    the single-device ones, the device operations of one call, and the
    peak memory of one rotation through 'stream' and 'gather'.
 
@@ -191,6 +209,15 @@ SHARD_ATOL = 4 * 3e-5
 SHARD_STREAM_ATOL = 5e-4
 SHARD_PREFILTER_ATOL = 2e-5
 SHARD_SIRT_ITERATIONS = 3
+# kernel C, the back-projection: the least floating-point work per output
+# voxel a tilt.  Row-gather: a lerp (3) and the sum (1), the row coordinate
+# shared by a line of voxels; general: two coordinates by one FMA each from
+# the line's start (4), two fractions (2), three lerps (9) and the sum (1)
+BACKPROJECT_FLOPS = {True: 4, False: 16}
+TOMO_SHAPE = (256, 512, 512)       # a tomogram cryo-ET users reconstruct
+# SIRT against the plain forward and C's plain version: a few iterations
+# (the plain forward takes about half a second a sweep at 250^3)
+SIRT_REFERENCE_ITERATIONS = 3
 # the matrices of tests/test_pallas.py, on its (40, 48, 56) volume
 PALLAS_SHAPE = (40, 48, 56)
 PALLAS_CENTER = (19.5, 23.5, 27.5)
@@ -298,6 +325,38 @@ def tilt_series(np, transform_matrix, shape, axis):
         ms.append(transform_matrix(rotation=triple, rotation_order="rzxz",
                                    center=center))
     return np.stack(ms).astype(np.float32)
+
+
+def axis_series(np, shape, axis):
+    """The 41 tilts of TILTS as rotations about array ``axis``, about the
+    centre (n - 1) / 2: pull-back matrices, float32."""
+    i, j = [a for a in range(3) if a != axis]
+    centre = (np.asarray(shape, np.float64) - 1) / 2
+    ms = []
+    for a in np.radians(np.arange(*TILTS)):
+        m = np.eye(4)
+        m[i, i], m[i, j], m[j, i], m[j, j] = (np.cos(a), -np.sin(a),
+                                              np.sin(a), np.cos(a))
+        m[:3, 3] = centre - m[:3, :3] @ centre
+        ms.append(m)
+    return np.stack(ms).astype(np.float32)
+
+
+def inverses(np, ms):
+    """M^-1 of each matrix, float32, as the reconstructions compute it."""
+    return np.stack([np.linalg.inv(m) for m in ms]).astype(np.float32)
+
+
+def backproject_bound_ms(n, out_shape, proj_shape, rowgather):
+    """Least time on the card for C's back-projection of ``n`` projections
+    into ``out_shape``: the larger of the bytes moved (the projections read
+    once, the volume written once) over the memory rate and
+    BACKPROJECT_FLOPS a voxel a tilt over the fp32 rate.  Returns (ms,
+    'bytes' or 'operations')."""
+    vout = out_shape[0] * out_shape[1] * out_shape[2]
+    tb = 4.0 * (vout + n * proj_shape[0] * proj_shape[1]) / HBM_BYTES_PER_S
+    to = BACKPROJECT_FLOPS[bool(rowgather)] * n * vout / FP32_FLOPS
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
 
 
 def blob_phantom(np, ndimage, n, seed=0):
@@ -446,6 +505,7 @@ def main():
     from voltools_tpu_torch.kernels import _build
     from voltools_tpu_torch.kernels import affine_resample as K
     from voltools_tpu_torch.kernels import affine_slab as S
+    from voltools_tpu_torch.kernels import backproject as BP
     from voltools_tpu_torch.kernels import planner
     from voltools_tpu_torch.kernels.layout import pitched
     from voltools_tpu_torch.kernels.planner import (choose_plan, slab_plan,
@@ -462,6 +522,7 @@ def main():
 
     walk = K.affine_resample
     slab = S.affine_slab
+    bproj = BP.backproject
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     interp_of = {1: "linear", 3: "bspline"}
@@ -487,17 +548,19 @@ def main():
 
     # --------------------------------------------------------- 2. build
     # one nvcc per source, all started together
-    cached = {m.NAME: _build.library_path(m.NAME).is_file() for m in (K, S)}
+    kernel_modules = (K, S, BP)
+    cached = {m.NAME: _build.library_path(m.NAME).is_file()
+              for m in kernel_modules}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(_build.build, [K.NAME, S.NAME]))
-    K._library()
-    S._library()
+    with ThreadPoolExecutor(len(kernel_modules)) as pool:
+        list(pool.map(_build.build, [m.NAME for m in kernel_modules]))
+    for m in kernel_modules:
+        m._library()
     wall = time.perf_counter() - t0
-    for m in (K, S):
+    for m in kernel_modules:
         seconds, log = _build.BUILD_LOG.get(m.NAME, (None, ""))
         emit("build", source=m.SOURCE, seconds=seconds,
-             built_now=not cached[m.NAME], wall_seconds_both=wall,
+             built_now=not cached[m.NAME], wall_seconds_all=wall,
              flags=" ".join(_build.NVCC_FLAGS),
              ptxas=[ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln])
@@ -674,6 +737,89 @@ def main():
          overflows=overflows)
     del vol, buf
 
+    # --------------------------- 4b. C vs its plain version, bit for bit
+    from voltools_tpu_torch.parallel.sharded import _shifted
+    rng = np.random.default_rng(4)
+    recon_series = tilt_series(np, transform_matrix, big, RECON_TILT_AXIS)
+    odd = (37, 50, 61)
+    odd_series = tilt_series(np, transform_matrix, odd, RECON_TILT_AXIS)
+    # (name, output shape, projection axis, pull-back matrices, the path
+    # the geometry takes, the paths run: the general path on a row-gather
+    # geometry is _force_general's)
+    both = ("rowgather", "general")
+    bp_cases = [
+        ("recon_series_axis0", big, 0, recon_series, "rowgather",
+         ("rowgather",)),
+        ("axis1", big, 1, axis_series(np, big, 2), "rowgather",
+         ("rowgather",)),
+        ("axis2", big, 2, axis_series(np, big, 1), "rowgather",
+         ("rowgather",)),
+        ("recon_series_forced_general", big, 0, recon_series, "rowgather",
+         ("general",)),
+        ("general_geometry", big, 0, axis_series(np, big, 1), "general",
+         ("general",)),
+        ("odd_shape", odd, 0, odd_series, "rowgather", both),
+        ("one_tilt", big, 0, recon_series[20:21], "rowgather", both),
+    ]
+    bp_rows = []
+
+    def bp_check(name, projs, minv, keep, out_shape, rowgather):
+        got = bproj(projs, minv, keep, out_shape, rowgather)
+        want = BP.plain_backproject(projs, minv, keep, out_shape, rowgather)
+        assert got.shape == out_shape and torch.isfinite(got).all(), name
+        assert torch.equal(got, want), (name, rowgather, float(
+            (got - want).abs().max()))
+        return float((got - want).abs().max())
+
+    for name, shape, axis, ms, geometry, paths in bp_cases:
+        keep = [a for a in range(3) if a != axis]
+        minv = inverses(np, ms)
+        pshape = (shape[keep[0]], shape[keep[1]])
+        projs = torch.from_numpy(rng.random((len(ms),) + pshape,
+                                            dtype=np.float32)).to(dev)
+        assert BP.row_gather(minv, keep, shape, pshape) == (
+            geometry == "rowgather"), name
+        for path in paths:
+            err = bp_check(name, projs, minv, keep, shape,
+                           path == "rowgather")
+            bp_rows.append({"case": name, "shape": list(shape),
+                            "projection_axis": axis, "tilts": len(ms),
+                            "path": path, "max_abs_err": err})
+    # a volume shard's calls: 4 slabs of 63 planes, the slab offset folded
+    # into column 3 of M^-1, the path decided on the unshifted matrices
+    minv = inverses(np, recon_series)
+    projs = torch.from_numpy(rng.random((len(minv), SIZE, SIZE),
+                                        dtype=np.float32)).to(dev)
+    local = -(-SIZE // SHARDS)
+    slab_shape = (local,) + big[1:]
+    for path in ("rowgather", "general"):
+        for i in range(SHARDS):
+            mv = _shifted(minv, np.float32(i * local))
+            err = bp_check("shifted", projs, mv, [1, 2], slab_shape,
+                           path == "rowgather")
+            bp_rows.append({"case": f"shifted_slab_{i}",
+                            "shape": list(slab_shape), "projection_axis": 0,
+                            "tilts": len(mv), "path": path,
+                            "max_abs_err": err})
+    # rows partly off the projection (each tilt shifted by up to half the
+    # projection's height), one tilt far off (int32 would wrap at 1e10)
+    off = minv.copy()
+    off[:, 1, 3] += np.linspace(-0.5, 0.5, len(off),
+                                dtype=np.float32) * SIZE
+    off[0, 1, 3] = np.float32(1e10)
+    off[1, 1, 3] = np.float32(-1e10)
+    for path in ("rowgather", "general"):
+        err = bp_check("rows_off", projs, off, [1, 2], big,
+                       path == "rowgather")
+        bp_rows.append({"case": "rows_off_the_projection",
+                        "shape": list(big), "projection_axis": 0,
+                        "tilts": len(off), "path": path, "max_abs_err": err})
+    bp_worst = max(r["max_abs_err"] for r in bp_rows)
+    torch.cuda.synchronize()
+    emit("parity_backproject", kernel=BP.NAME, cases=bp_rows,
+         equal_to_plain=True, max_abs_err=bp_worst)
+    del projs
+
     # ---------------------------------------------------- 5. main path
     rng = np.random.default_rng(0)   # bench.py's volume and rotation stream
     vol_np = rng.random(big, dtype=np.float64).astype(np.float32)
@@ -689,13 +835,13 @@ def main():
     calls = ([rots[i] for i in range(N_ROT)] + [rots]) * 2 + [
         rots[0], rots[1], rots[0]]
     orders = [1] * (N_ROT + 1) + [3] * (N_ROT + 1) + [1, 3, 3]
-    expected = {S.NAME: 0, K.NAME: 0}
+    expected = {S.NAME: 0, K.NAME: 0, BP.NAME: 0}
     for m, order in zip(calls, orders):
         expected[S.NAME if routed(m, big, order) is not None
                  else K.NAME] += 1
 
     torch.cuda.synchronize()
-    walk.launches = slab.launches = 0
+    walk.launches = slab.launches = bproj.launches = 0
     t0 = time.perf_counter()
     sv_lin = vt.StaticVolume(vol_np, "linear", device="cuda")
     lin = [sv_lin.affine(m, output="device") for m in rots]
@@ -710,7 +856,8 @@ def main():
                         device="cuda", output="device")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    main_launches = {S.NAME: slab.launches, K.NAME: walk.launches}
+    main_launches = {S.NAME: slab.launches, K.NAME: walk.launches,
+                     BP.NAME: bproj.launches}
     assert main_launches == expected, (main_launches, expected)
     assert sum(main_launches.values()) == len(calls), main_launches
     assert vt.last_dispatch()["impl"] == "cuda"
@@ -764,7 +911,9 @@ def main():
     def chunks_of(ms):
         return [ms[p:p + chunk] for p in range(0, len(ms), chunk)]
 
-    expected_tilt = {S.NAME: 0, K.NAME: 0}
+    # C: one back-projection per WBP; SIRT's column sums and one per
+    # iteration
+    expected_tilt = {S.NAME: 0, K.NAME: 0, BP.NAME: 1 + 1 + SIRT_ITERATIONS}
     # the projector's series in both orders, the reconstruction's series
     # once, then SIRT: the row sums and one forward sweep per iteration
     for ms, order, times in ((tms, 1, 1), (tms, 3, 1),
@@ -774,7 +923,7 @@ def main():
                           else K.NAME] += times
 
     torch.cuda.synchronize()
-    walk.launches = slab.launches = 0
+    walk.launches = slab.launches = bproj.launches = 0
     t0 = time.perf_counter()
     proj = {}
     projs = {}
@@ -793,7 +942,8 @@ def main():
                             device="cuda", output="device")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    tilt_launches = {S.NAME: slab.launches, K.NAME: walk.launches}
+    tilt_launches = {S.NAME: slab.launches, K.NAME: walk.launches,
+                     BP.NAME: bproj.launches}
     assert tilt_launches == expected_tilt, (tilt_launches, expected_tilt)
     # every kernel runs on one of the two paths at least
     assert all(main_launches[k] + tilt_launches[k] > 0
@@ -827,19 +977,36 @@ def main():
                                                       scipy_err[interp])
     rplain = plain_projs["reconstruction_series"]
     wbp_plain = wbp_reconstruct(rplain, rms, big, device="cuda",
-                                output="device")
-    sirt_plain = sirt_reconstruct(rplain, rms, big,
-                                  iterations=SIRT_ITERATIONS, device="cuda",
-                                  output="device", _plain_forward=True)
+                                output="device", _plain_adjoint=True)
+    sirt_few, sirt_plain = (sirt_reconstruct(
+        src, rms, big, iterations=SIRT_REFERENCE_ITERATIONS, device="cuda",
+        output="device", _plain_forward=plain, _plain_adjoint=plain)
+        for src, plain in ((rprojs, False), (rplain, True)))
+    # where only C differs from its plain version, bit for bit: WBP of the
+    # same projections, and the path's SIRT with the same (B's) forward
+    only_c = {}
+    for name, got, ref in (
+            ("wbp", wbp, lambda: wbp_reconstruct(
+                rprojs, rms, big, device="cuda", output="device",
+                _plain_adjoint=True)),
+            (f"sirt_{SIRT_ITERATIONS}_iterations", sirt,
+             lambda: sirt_reconstruct(
+                 rprojs, rms, big, iterations=SIRT_ITERATIONS,
+                 device="cuda", output="device", _plain_adjoint=True))):
+        only_c[name] = bool(torch.equal(got, ref()))
+        assert only_c[name], (name, "with C != with its plain version")
     recon_err = {}
     corr = {}
     inner = (slice(SIZE // 10, -(SIZE // 10)),) * 3
     for name, got, want in (("wbp", wbp, wbp_plain),
-                            ("sirt", sirt, sirt_plain)):
-        assert got.shape == big and torch.isfinite(got).all()
+                            (f"sirt_{SIRT_REFERENCE_ITERATIONS}_iterations",
+                             sirt_few, sirt_plain)):
+        assert torch.isfinite(got).all()
         scale = float(want.abs().max())
         recon_err[name] = float((got - want).abs().max()) / scale
         assert recon_err[name] <= RECON_RTOL, (name, recon_err[name])
+    for name, got in (("wbp", wbp), ("sirt", sirt)):
+        assert got.shape == big and torch.isfinite(got).all()
         # how much of the (white-noise) volume a +-60 degree series
         # recovers, away from the edges; reported, not checked
         corr[name] = float(np.corrcoef(got[inner].cpu().numpy().ravel(),
@@ -856,10 +1023,11 @@ def main():
                       plan_of(chunks_of(rms)[0], big, 1).extents)},
          max_abs_err_vs_plain=proj_err, proj_atol=PROJ_ATOL,
          scipy_first_tilt=scipy_err, scipy_atol=PROJ_SCIPY_ATOL,
-         recon_rel_err_vs_plain_forward=recon_err, recon_rtol=RECON_RTOL,
+         recon_rel_err_vs_plain_forward_and_adjoint=recon_err,
+         recon_rtol=RECON_RTOL, equal_to_plain_adjoint=only_c,
          interior_correlation_with_volume=corr,
          sirt_iterations=SIRT_ITERATIONS, overflows=S.overflows(dev))
-    del wbp, sirt, wbp_plain, sirt_plain, plain_projs, rplain
+    del wbp, sirt, wbp_plain, sirt_few, sirt_plain, plain_projs, rplain
 
     # --------------------------------------------------------- 7. times
     coef = {1: sv_lin.data, 3: sv_cub.data}
@@ -1107,6 +1275,87 @@ def main():
         reps=2, warmup=1)
     t["sirt_ms_per_iteration"] = (sirt_4 - sirt_1) / 3
     t["sirt_setup_ms"] = sirt_1 - t["sirt_ms_per_iteration"]
+    # the same two with C's plain version, in the same call
+    t["wbp_plain_adjoint_ms"] = time_ms(torch, lambda: wbp_reconstruct(
+        rprojs, rms, big, device="cuda", output="device",
+        _plain_adjoint=True), reps=3, warmup=1)
+    sirt_p = [time_ms(torch, lambda n=n: sirt_reconstruct(
+        rprojs, rms, big, iterations=n, device="cuda", output="device",
+        _plain_adjoint=True), reps=2, warmup=1) for n in (1, 4)]
+    t["sirt_plain_adjoint_ms_per_iteration"] = (sirt_p[1] - sirt_p[0]) / 3
+    # C alone on the reconstruction's series (41 projections of 250^2) on
+    # both paths, its plain version, its bound and a library yardstick
+    rminv = inverses(np, rms)
+    for path in ("rowgather", "general"):
+        rowgather = path == "rowgather"
+        key = f"backproject_{path}"
+        t[f"{key}_ms"] = time_ms(torch, lambda: bproj(
+            rprojs, rminv, [1, 2], big, rowgather), reps=20)
+        t[f"{key}_plain_ms"] = time_ms(torch, lambda: BP.plain_backproject(
+            rprojs, rminv, [1, 2], big, rowgather), reps=3, warmup=1)
+        t[f"{key}_bound_ms"], t[f"{key}_bound_by"] = backproject_bound_ms(
+            len(rms), big, big[1:], rowgather)
+    # the host's waits on the device in one call of C, and of WBP, less
+    # those of a call that only fills one float: C waits on nothing
+    base_syncs = host_syncs(torch, lambda: torch.zeros(1, device=dev))
+    t["backproject_host_syncs"] = host_syncs(torch, lambda: bproj(
+        rprojs, rminv, [1, 2], big, True)) - base_syncs
+    assert t["backproject_host_syncs"] == 0, t["backproject_host_syncs"]
+    t["wbp_host_syncs"] = host_syncs(torch, lambda: wbp_reconstruct(
+        rprojs, rms, big, device="cuda", output="device")) - base_syncs
+    # one grid_sample of the 41 projections at every voxel's (rows, cols)
+    # (align_corners=True maps -1..1 onto pixel centres 0..n-1, 'zeros'
+    # counts each tap off the projection 0), then the sum over the tilts;
+    # timed only, the grid is built outside the timed region
+    table = torch.from_numpy(BP.coefficients(rminv, [1, 2], True)).to(dev)
+    zz = torch.arange(SIZE, dtype=torch.float32, device=dev).view(1, -1, 1)
+    yy = torch.arange(SIZE, dtype=torch.float32, device=dev).view(1, 1, -1)
+    rows = ((table[:, 0].view(-1, 1, 1) * zz + table[:, 1].view(-1, 1, 1)
+             * yy) + table[:, 2].view(-1, 1, 1)).reshape(len(rms), -1, 1)
+    grid = torch.empty((len(rms), SIZE * SIZE, SIZE, 2), device=dev)
+    grid[..., 0] = 2.0 * torch.arange(SIZE, dtype=torch.float32,
+                                      device=dev) / (SIZE - 1) - 1.0
+    grid[..., 1] = 2.0 * rows / (SIZE - 1) - 1.0
+    del rows
+    src = rprojs[:, None]
+
+    def library_backproject():
+        return torch.nn.functional.grid_sample(
+            src, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True).sum(0).view(big)
+
+    t["backproject_grid_sample_sum_ms"] = time_ms(
+        torch, library_backproject, reps=3, warmup=1)
+    t["backproject_grid_sample_sum_max_abs_diff"] = float(
+        (library_backproject() - bproj(rprojs, rminv, [1, 2], big, True))
+        .abs().max())
+    del grid, src
+    # WBP at a tomogram's size: (256, 512, 512) from 41 projections of
+    # (512, 512), C against its plain version, bit for bit
+    tomo_ms = tilt_series(np, transform_matrix, TOMO_SHAPE, RECON_TILT_AXIS)
+    tomo_projs = torch.from_numpy(np.random.default_rng(5).random(
+        (len(tomo_ms),) + TOMO_SHAPE[1:], dtype=np.float32)).to(dev)
+    tomo = {plain: wbp_reconstruct(tomo_projs, tomo_ms, TOMO_SHAPE,
+                                   device="cuda", output="device",
+                                   _plain_adjoint=plain)
+            for plain in (False, True)}
+    assert tomo[False].shape == TOMO_SHAPE
+    assert torch.isfinite(tomo[False]).all()
+    assert torch.equal(tomo[False], tomo[True]), "tomogram WBP: C != plain"
+    del tomo
+    t["tomogram_shape"] = list(TOMO_SHAPE)
+    for plain, key in ((False, "tomogram_wbp_ms"),
+                       (True, "tomogram_wbp_plain_adjoint_ms")):
+        t[key] = time_ms(torch, lambda: wbp_reconstruct(
+            tomo_projs, tomo_ms, TOMO_SHAPE, device="cuda", output="device",
+            _plain_adjoint=plain), reps=2, warmup=1)
+    tomo_minv = inverses(np, tomo_ms)
+    t["tomogram_backproject_ms"] = time_ms(torch, lambda: bproj(
+        tomo_projs, tomo_minv, [1, 2], TOMO_SHAPE, True), reps=5)
+    t["tomogram_backproject_bound_ms"], t[
+        "tomogram_backproject_bound_by"] = backproject_bound_ms(
+            len(tomo_ms), TOMO_SHAPE, TOMO_SHAPE[1:], True)
+    del tomo_projs
     vol_dev = torch.from_numpy(vol_np).to(dev)
     # what the pitched layout costs: the copy the one-shot call makes of a
     # 250-wide volume, and A on the pitched against the contiguous volume
@@ -1180,7 +1429,7 @@ def main():
                  interpolation=interp, device="cuda")
 
     torch.cuda.synchronize()
-    walk.launches = slab.launches = 0
+    walk.launches = slab.launches = bproj.launches = 0
     results, register_ms = {}, {}
     for interp in interps:
         register_ms[interp], results[interp] = event_ms(
@@ -1192,8 +1441,9 @@ def main():
         mov_dev, interpolation=interp, device="cuda", output="device")
         for interp in interps}
     torch.cuda.synchronize()
-    reg_launches = {S.NAME: slab.launches, K.NAME: walk.launches}
-    expected_reg = {S.NAME: 0, K.NAME: 0}
+    reg_launches = {S.NAME: slab.launches, K.NAME: walk.launches,
+                    BP.NAME: bproj.launches}
+    expected_reg = {S.NAME: 0, K.NAME: 0, BP.NAME: 0}
     for interp in interps:
         expected_reg[S.NAME if routed(results[interp].matrix, rshape,
                                       spline_order(interp)) is not None
@@ -1404,17 +1654,20 @@ def main():
             n[S.NAME if r.plan is not None else K.NAME] += 1
         return n
 
-    shard_launches = {S.NAME: 0, K.NAME: 0}
+    shard_launches = {S.NAME: 0, K.NAME: 0, BP.NAME: 0}
 
-    def launched(fn, routes):
-        """Run ``fn`` with both counters set to 0 just before; the counts
-        just after must be what ``routes`` give; add them to the phase's."""
+    def launched(fn, routes, backprojections=0):
+        """Run ``fn`` with the counters set to 0 just before; the counts
+        just after must be what ``routes`` give, and C's
+        ``backprojections``; add them to the phase's."""
         torch.cuda.synchronize()
-        walk.launches = slab.launches = 0
+        walk.launches = slab.launches = bproj.launches = 0
         result = fn()
         torch.cuda.synchronize()
-        got = {S.NAME: slab.launches, K.NAME: walk.launches}
-        assert got == counted(routes), (got, counted(routes))
+        got = {S.NAME: slab.launches, K.NAME: walk.launches,
+               BP.NAME: bproj.launches}
+        want = dict(counted(routes), **{BP.NAME: backprojections})
+        assert got == want, (got, want)
         for k in got:
             shard_launches[k] += got[k]
         return result
@@ -1555,11 +1808,19 @@ def main():
     wbp_one = wbp_reconstruct(rprojs, rms, big, device="cuda",
                               output="device")
     scale = float(wbp_one.abs().max())
+    # C launches once per shard in each mesh WBP, and per shard for the
+    # column sums and each iteration in the mesh SIRT; each result equals
+    # the same call with C's plain version bit for bit
+    recon_equal = {}
     for mesh_shard in ("tilts", "volume"):
-        res = launched(lambda: wbp_reconstruct(
+        res, plain = (launched(lambda: wbp_reconstruct(
             rprojs, rms, big, mesh=mesh, mesh_shard=mesh_shard,
-            output="device"), [])
+            output="device", _plain_adjoint=p), [],
+            0 if p else SHARDS) for p in (False, True))
         got = res if mesh_shard == "tilts" else torch.cat(res)
+        recon_equal[f"wbp_{mesh_shard}"] = bool(torch.equal(
+            got, plain if mesh_shard == "tilts" else torch.cat(plain)))
+        assert recon_equal[f"wbp_{mesh_shard}"], mesh_shard
         err = float((got - wbp_one).abs().max()) / scale
         assert err <= RECON_RTOL, (mesh_shard, err)
         recon_rows[f"wbp_{mesh_shard}"] = err
@@ -1567,19 +1828,19 @@ def main():
     sirt_ms[SHARD_SIRT_ITERATIONS], res = event_ms(torch, lambda: launched(
         lambda: sirt_reconstruct(rprojs, rms, big,
                                  iterations=SHARD_SIRT_ITERATIONS,
-                                 mesh=mesh, output="device"), []))
+                                 mesh=mesh, output="device"), [],
+        SHARDS * (1 + SHARD_SIRT_ITERATIONS)))
     sirt_one = sirt_reconstruct(rprojs, rms, big,
                                 iterations=SHARD_SIRT_ITERATIONS,
                                 device="cuda", output="device",
-                                _plain_forward=True)
+                                _plain_forward=True, _plain_adjoint=True)
     got = torch.cat(res)
     assert got.shape == big and torch.isfinite(got).all()
     err = float((got - sirt_one).abs().max()) / float(sirt_one.abs().max())
     assert err <= RECON_RTOL, ("sirt", err)
     recon_rows["sirt"] = err
     del res, got, sirt_one
-    assert shard_launches[S.NAME] > 0 and shard_launches[K.NAME] > 0, \
-        shard_launches
+    assert all(v > 0 for v in shard_launches.values()), shard_launches
     assert S.overflows(dev) == 0
     check_seconds = time.perf_counter() - t0
 
@@ -1643,8 +1904,17 @@ def main():
             output="device"), reps=2, warmup=1)
     st["wbp_single_ms"] = time_ms(torch, lambda: wbp_reconstruct(
         rprojs, rms, big, device="cuda", output="device"), reps=2, warmup=1)
-    sirt_ms[1] = event_ms(torch, lambda: sirt_reconstruct(
-        rprojs, rms, big, iterations=1, mesh=mesh, output="device"))[0]
+    sirt_ms[1], res = event_ms(torch, lambda: sirt_reconstruct(
+        rprojs, rms, big, iterations=1, mesh=mesh, output="device"))
+    # the mesh SIRT with C's plain version, bit for bit, one iteration (its
+    # plain torch forward takes seconds)
+    plain = launched(lambda: sirt_reconstruct(
+        rprojs, rms, big, iterations=1, mesh=mesh, output="device",
+        _plain_adjoint=True), [])
+    recon_equal["sirt_1_iteration"] = bool(torch.equal(torch.cat(res),
+                                                       torch.cat(plain)))
+    assert recon_equal["sirt_1_iteration"], "mesh SIRT: C != plain version"
+    del res, plain
     st["sirt_mesh_ms_per_iteration"] = (
         sirt_ms[SHARD_SIRT_ITERATIONS] - sirt_ms[1]) / (
         SHARD_SIRT_ITERATIONS - 1)
@@ -1664,6 +1934,7 @@ def main():
                     "body": body1, "max_abs_err_vs_single": make_mesh_err,
                     "equal_to_single": make_mesh_equal},
          batch_calls=batch_rows, recon_rel_err_vs_single=recon_rows,
+         recon_equal_to_plain_adjoint=recon_equal,
          recon_rtol=RECON_RTOL, sirt_iterations=SHARD_SIRT_ITERATIONS,
          overflows=S.overflows(dev),
          atol={"halo_gather": SHARD_ATOL, "stream": SHARD_STREAM_ATOL,
@@ -1734,6 +2005,36 @@ def main():
                   "batch_ms_per_matrix":
                       t["random_cubic_batch_walk_ms_per_matrix"],
                   "max_abs_err": max(worst[3], main_err[3])},
+    }, {
+        "name": BP.NAME, "route": "cuda", "source": BP.SOURCE,
+        "replaces": BP.REPLACES, "launches": main_tilt[BP.NAME],
+        "launches_by_path": {"main": main_launches[BP.NAME],
+                             "tilt": tilt_launches[BP.NAME],
+                             "registration": reg_launches[BP.NAME],
+                             "sharded": shard_launches[BP.NAME]},
+        "max_abs_err": bp_worst,
+        "ms": t["backproject_rowgather_ms"],
+        "plain_ms": t["backproject_rowgather_plain_ms"],
+        "bound_ms": t["backproject_rowgather_bound_ms"],
+        "bound_by": t["backproject_rowgather_bound_by"],
+        "library_ms": t["backproject_grid_sample_sum_ms"],
+        "shape": list(big), "matrices": "the reconstruction's 41-tilt "
+        "series, projection axis 0, row-gather path, one launch",
+        "equal_to_plain": True,
+        "library_max_abs_diff":
+            t["backproject_grid_sample_sum_max_abs_diff"],
+        "general": {"ms": t["backproject_general_ms"],
+                    "plain_ms": t["backproject_general_plain_ms"],
+                    "bound_ms": t["backproject_general_bound_ms"],
+                    "bound_by": t["backproject_general_bound_by"],
+                    "library_ms": None},
+        "tomogram": {"shape": list(TOMO_SHAPE),
+                     "ms": t["tomogram_backproject_ms"],
+                     "bound_ms": t["tomogram_backproject_bound_ms"],
+                     "bound_by": t["tomogram_backproject_bound_by"],
+                     "wbp_ms": t["tomogram_wbp_ms"],
+                     "wbp_plain_adjoint_ms":
+                         t["tomogram_wbp_plain_adjoint_ms"]},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

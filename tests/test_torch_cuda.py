@@ -22,6 +22,9 @@ from voltools_tpu_torch.kernels.affine_resample import (DEEP_PATCH,
                                                         reset_fast_path_voxels)
 from voltools_tpu_torch.kernels.affine_slab import (affine_slab,
                                                     blocks_per_sm, overflows)
+from voltools_tpu_torch.kernels.backproject import (backproject,
+                                                    plain_backproject,
+                                                    row_gather)
 from voltools_tpu_torch.kernels.layout import pitched, tma_ready
 from voltools_tpu_torch.kernels.planner import (BRICK, SMEM_BUDGET, SlabPlan,
                                                 slab_extents, slab_plan)
@@ -594,3 +597,107 @@ def test_sharded_batch_and_reconstructions_on_a_4_shard_mesh(dev):
     one = sirt_reconstruct(p, ms, shape, iterations=3, device="cuda",
                            _plain_forward=True)
     assert np.abs(res - one).max() <= 1e-4 * np.abs(one).max()
+
+
+def _rotation_about(shape, axis, degrees):
+    """The pull-back matrix of a rotation about array ``axis`` by
+    ``degrees`` about the volume's centre."""
+    i, j = [a for a in range(3) if a != axis]
+    c, s = np.cos(np.radians(degrees)), np.sin(np.radians(degrees))
+    m = np.eye(4)
+    m[i, i], m[i, j], m[j, i], m[j, j] = c, -s, s, c
+    centre = (np.asarray(shape, np.float64) - 1) / 2
+    m[:3, 3] = centre - m[:3, :3] @ centre
+    return m
+
+
+def _backprojection_case(shape, projection_axis, path, dev, seed):
+    """(projections on ``dev``, float32 M^-1, keep) of 7 tilts about the
+    column axis (row-gather) or about the row axis (general), the last
+    tilt's rows shifted partly off the projection and one far off."""
+    keep = [a for a in range(3) if a != projection_axis]
+    about = keep[1] if path == "rowgather" else keep[0]
+    minv = np.stack([np.linalg.inv(_rotation_about(shape, about, a))
+                     for a in np.linspace(-60, 60, 7)]).astype(np.float32)
+    minv[-1, keep[0], 3] += np.float32(0.4 * shape[keep[0]])
+    minv[2, keep[0], 3] = np.float32(1e10)
+    projs = torch.from_numpy(np.random.default_rng(seed).random(
+        (7, shape[keep[0]], shape[keep[1]])).astype(np.float32)).to(dev)
+    return projs, minv, keep
+
+
+@pytest.mark.parametrize("shape", [(23, 29, 31), (1, 9, 10), (6, 1, 140)])
+@pytest.mark.parametrize("projection_axis", [0, 1, 2])
+@pytest.mark.parametrize("path", ["rowgather", "general"])
+def test_backproject_equals_plain_version(dev, path, projection_axis, shape):
+    """Both paths of C, bit for bit its plain version on the same card,
+    on the whole volume and on a shard's slab-shifted matrices."""
+    projs, minv, keep = _backprojection_case(shape, projection_axis, path,
+                                             dev, seed=sum(shape))
+    rowgather = path == "rowgather"
+    if rowgather:
+        assert row_gather(minv, keep, shape, tuple(projs.shape[1:]))
+    # a shard's 3 planes from plane 2: the offset folded into column 3
+    shifted = minv.copy()
+    shifted[:, :, 3] += minv[:, :, 0] * np.float32(2)
+    before = backproject.launches
+    for mv, out_shape in ((minv, shape), (shifted, (3,) + shape[1:])):
+        got = backproject(projs, mv, keep, out_shape, rowgather)
+        assert got.is_cuda and got.shape == out_shape
+        want = plain_backproject(projs, mv, keep, out_shape, rowgather)
+        assert torch.equal(got, want), float((got - want).abs().max())
+    assert backproject.launches == before + 2
+
+
+def test_backproject_on_a_side_stream_and_the_last_card(dev):
+    projs, minv, keep = _backprojection_case((12, 13, 14), 0, "rowgather",
+                                             dev, seed=1)
+    want = plain_backproject(projs, minv, keep, (12, 13, 14))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = backproject(projs, minv, keep, (12, 13, 14))
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch.equal(got, want)
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    got = backproject(projs.to(last), minv, keep, (12, 13, 14))
+    assert torch.cuda.current_device() == 0 and got.device == last
+    assert torch.equal(got.to(dev), want)
+    with pytest.raises(ValueError, match="contiguous"):
+        backproject(projs.transpose(1, 2), minv, keep, (12, 14, 13))
+
+
+def test_reconstructions_launch_backproject_and_equal_its_plain_version(dev):
+    """Every back-projection of WBP and SIRT, single-device and on a
+    4-shard mesh, is one launch of C (a shard's one), and each result
+    equals the same call with C's plain version bit for bit."""
+    shape = (20, 22, 24)
+    vol = np.random.default_rng(7).random(shape).astype(np.float32)
+    proj = TiltSeriesProjector(vol, "linear", device="cuda")
+    angles = np.arange(-60.0, 61.0, 20.0)
+    ms = proj.tilt_matrices(angles, tilt_axis=0)
+    p = proj.project(angles, tilt_axis=0, output="device")
+    mesh = _mesh4(dev)
+    calls = [
+        (lambda **k: wbp_reconstruct(p, ms, shape, output="device", **k),
+         1),
+        (lambda **k: sirt_reconstruct(p, ms, shape, iterations=3,
+                                      output="device", **k), 1 + 3),
+        (lambda **k: wbp_reconstruct(p, ms, shape, mesh=mesh,
+                                     mesh_shard="tilts", output="device",
+                                     **k), 4),
+        (lambda **k: torch.cat(wbp_reconstruct(
+            p, ms, shape, mesh=mesh, mesh_shard="volume", output="device",
+            **k)), 4),
+        (lambda **k: torch.cat(sirt_reconstruct(
+            p, ms, shape, iterations=3, mesh=mesh, output="device", **k)),
+         4 * (1 + 3)),
+    ]
+    for call, launches in calls:
+        before = backproject.launches
+        got = call()
+        assert backproject.launches == before + launches
+        want = call(_plain_adjoint=True)
+        assert backproject.launches == before + launches
+        assert torch.equal(got, want)

@@ -29,9 +29,9 @@ import voltools_tpu_torch as tvt
 import voltools_tpu_torch.models as tm
 from voltools_tpu.models.reconstruction import _make_adjoint as jax_adjoint
 from voltools_tpu_torch.convert import projector_from_state
+from voltools_tpu_torch.kernels import backproject
 from voltools_tpu_torch.kernels.planner import (SlabPlan, choose_plan,
                                                 slab_plan)
-from voltools_tpu_torch.models import reconstruction
 from voltools_tpu_torch.models.reconstruction import _make_adjoint
 
 SHAPE = (18, 20, 22)
@@ -160,8 +160,8 @@ def test_wbp_matches_jax(vol, projection_axis, tilt_axis, rowgather,
     # the geometry takes the adjoint path it is meant to: the general path
     # samples each projection with the 2-D bilinear gather
     calls = []
-    real = reconstruction._bilinear2d
-    monkeypatch.setattr(reconstruction, "_bilinear2d",
+    real = backproject._bilinear2d
+    monkeypatch.setattr(backproject, "_bilinear2d",
                         lambda *a: calls.append(1) or real(*a))
     for window in ("ramlak", None):
         want = jm.wbp_reconstruct(p, ms, SHAPE, projection_axis,

@@ -8,11 +8,12 @@ output voxel ``w``: reconstruction ramp-filters each projection across the
 tilt axis, back-projects it along the matching geometry, and sums.
 
 The ramp filter is ``torch.fft`` along one projection axis; the
-back-projection is a Python loop over tilts (the JAX package's
-``lax.scan``) of a 2-D bilinear gather, or of two whole-row gathers for a
-single-axis tilt series.  SIRT's forward operator is the projector's
-batched kernel sweep (:func:`.projections.project_stack`), run once per
-iteration.
+back-projection (the JAX package's ``lax.scan`` over tilts) is one launch
+of the kernel C, :func:`~..kernels.backproject.backproject`, on the card,
+and its plain version (a Python loop over tilts of a 2-D bilinear gather,
+or of two whole-row gathers for a single-axis tilt series) on the CPU.
+SIRT's forward operator is the projector's batched kernel sweep
+(:func:`.projections.project_stack`), run once per iteration.
 
 Given a :class:`~voltools_tpu_torch.parallel.Mesh`, both run over its
 shards, as the JAX package's mesh modes do under ``shard_map``:
@@ -32,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..kernels.backproject import backproject, plain_backproject, row_gather
 from ..kernels.layout import pitched, pitched_empty
 from ..parallel.sharded import _crop, _host, _psum, _ring_shift, _shifted
 from ..transforms import _as_tensor, _device, _finish
@@ -89,28 +91,6 @@ def _mesh_out(slabs, d0: int, output):
     return _finish(_host(slabs), output)
 
 
-def _bilinear2d(img, yy, xx):
-    """Bilinear sample of a 2-D image at float coordinate tensors (any
-    shape); out-of-range taps contribute 0."""
-    h, w = img.shape
-    y0f = torch.floor(yy)
-    x0f = torch.floor(xx)
-    fy = yy - y0f
-    fx = xx - x0f
-    y0 = y0f.to(torch.int64)
-    x0 = x0f.to(torch.int64)
-
-    def tap(yt, xt, wgt):
-        valid = (yt >= 0) & (yt < h) & (xt >= 0) & (xt < w)
-        v = img[yt.clamp(0, h - 1), xt.clamp(0, w - 1)]
-        return torch.where(valid, v, 0.0) * wgt
-
-    return (tap(y0, x0, (1 - fy) * (1 - fx))
-            + tap(y0, x0 + 1, (1 - fy) * fx)
-            + tap(y0 + 1, x0, fy * (1 - fx))
-            + tap(y0 + 1, x0 + 1, fy * fx))
-
-
 def _trilinear3d_pertap(vol, zz, yy, xx):
     """Trilinear sample of a 3-D block at float coordinate tensors with
     PER-TAP zero extension: each of the 8 taps contributes 0 outside the
@@ -149,64 +129,22 @@ def _trilinear3d_pertap(vol, zz, yy, xx):
 
 
 def _make_adjoint(minv, keep, out_shape, proj_shape,
-                  _force_general: bool = False):
+                  _force_general: bool = False, _plain: bool = False):
     """The back-projection ``(projs, minvs) -> volume`` shared by WBP and
     SIRT; ``projs`` is an (N, H', W') tensor, ``minvs`` the (N, 4, 4) numpy
-    inverse matrices.
+    inverse matrices (column 3 may carry a shard's slab offset).
 
-    General geometry: per tilt, a 2-D bilinear gather of the projection at
-    (rows, cols) = the ``keep`` components of ``M^-1 w``.  A single-axis
-    tilt series (cols the identity coordinate of one volume axis, rows
-    independent of it; every ``tilt_matrices`` stack) takes a fast path:
-    the gather is two whole-row gathers per tilt."""
-    ax_c = keep[1]
-    ident = np.zeros(4, np.float32)
-    ident[ax_c] = 1.0
-    rowgather = (not _force_general
-                 and np.abs(minv[:, ax_c, :] - ident).max() < 1e-6
-                 and np.abs(minv[:, keep[0], ax_c]).max() < 1e-6
-                 and out_shape[ax_c] == proj_shape[1])
-    dep = [a for a in range(3) if a != ax_c]
-    perm = tuple(int(i) for i in np.argsort(dep + [ax_c]))
-
-    def grid(n, axis, ndim, device):
-        view = [1] * ndim
-        view[axis] = n
-        return torch.arange(n, dtype=torch.float32, device=device).view(view)
+    The path is decided here, once, from ``minv`` (:func:`row_gather`: a
+    single-axis tilt series takes the row-gather path, other geometries the
+    general 2-D bilinear gather; ``_force_general`` the general path
+    always).  Each call is one launch of the kernel C for CUDA projections,
+    its plain version for CPU ones; ``_plain`` runs the plain version on
+    any device, the reference the kernel is held against."""
+    rowgather = row_gather(minv, keep, out_shape, proj_shape, _force_general)
+    run = plain_backproject if _plain else backproject
 
     def adjoint(projs, minvs):
-        device = projs.device
-        acc = torch.zeros(out_shape, dtype=torch.float32, device=device)
-        if rowgather:
-            sh2 = (out_shape[dep[0]], out_shape[dep[1]])
-            i0 = grid(sh2[0], 0, 2, device)
-            i1 = grid(sh2[1], 1, 2, device)
-            h = proj_shape[0]
-            for proj, mi in zip(projs, minvs):
-                r = [float(v) for v in mi[keep[0]]]
-                rows = r[dep[0]] * i0 + r[dep[1]] * i1 + r[3]
-                r0f = torch.floor(rows)
-                fr = rows - r0f
-                r0 = r0f.to(torch.int64)
-
-                def rtap(rt, wgt):
-                    valid = (rt >= 0) & (rt < h)
-                    g = proj[rt.clamp(0, h - 1)]
-                    return torch.where(valid[..., None], g, 0.0) \
-                        * wgt[..., None]
-
-                gb = rtap(r0, 1.0 - fr) + rtap(r0 + 1, fr)
-                acc += gb.permute(perm)
-        else:
-            zi, yi, xi = (grid(n, a, 3, device)
-                          for a, n in enumerate(out_shape))
-            for proj, mi in zip(projs, minvs):
-                rr = [float(v) for v in mi[keep[0]]]
-                cc = [float(v) for v in mi[keep[1]]]
-                rows = rr[0] * zi + rr[1] * yi + rr[2] * xi + rr[3]
-                cols = cc[0] * zi + cc[1] * yi + cc[2] * xi + cc[3]
-                acc += _bilinear2d(proj, rows, cols)
-        return acc
+        return run(projs.contiguous(), minvs, keep, out_shape, rowgather)
 
     return adjoint
 
@@ -234,7 +172,8 @@ def wbp_reconstruct(projections, matrices, out_shape,
                     projection_axis: int = 0,
                     filter_window: Optional[str] = "ramlak",
                     filter_axis="auto", mesh=None, mesh_shard: str = "tilts",
-                    device: str = "cuda", output: Optional[str] = None):
+                    device: str = "cuda", output: Optional[str] = None,
+                    _plain_adjoint: bool = False):
     """Weighted back-projection from a tilt series.
 
     Parameters
@@ -264,7 +203,11 @@ def wbp_reconstruct(projections, matrices, out_shape,
         a numpy array -> filled, returns None.
 
     Returns the (D, H, W) reconstruction scaled by ``pi / N`` (parallel-beam
-    WBP over a [0, pi) sweep)."""
+    WBP over a [0, pi) sweep).
+
+    ``_plain_adjoint`` runs the back-projection through the kernel's plain
+    version on the same device: the reference the kernel path is held
+    against."""
     if mesh is not None:
         if mesh_shard not in ("tilts", "volume"):
             raise ValueError("mesh_shard must be 'tilts' or 'volume'")
@@ -296,7 +239,8 @@ def wbp_reconstruct(projections, matrices, out_shape,
     # Riemann sum of the FBP integral over [0, pi): d_theta = pi / N
     scale = math.pi / n_tilt
     if mesh is None:
-        adjoint = _make_adjoint(minv, keep, out_shape, proj_shape)
+        adjoint = _make_adjoint(minv, keep, out_shape, proj_shape,
+                                _plain=_plain_adjoint)
         return _result_out(adjoint(filtered(projs), minv) * scale, output)
     if mesh_shard == "volume":
         # each shard its z slab of the output, from the replicated
@@ -304,7 +248,7 @@ def wbp_reconstruct(projections, matrices, out_shape,
         nd = mesh.size
         local = -(-out_shape[0] // nd)
         adjoint_s = _make_adjoint(minv, keep, (local,) + out_shape[1:],
-                                  proj_shape)
+                                  proj_shape, _plain=_plain_adjoint)
         projs = filtered(projs)
         replicas = {d: _ring_shift(projs, d) for d in mesh.distinct}
         slabs = [adjoint_s(replicas[d], _shifted(minv, np.float32(i * local)))
@@ -312,7 +256,8 @@ def wbp_reconstruct(projections, matrices, out_shape,
         return _mesh_out(slabs, out_shape[0], output)
     # each shard a share of the tilts: zero projections pad the batch to
     # divide the mesh (they add nothing; the scale counts the true tilts)
-    adjoint = _make_adjoint(minv, keep, out_shape, proj_shape)
+    adjoint = _make_adjoint(minv, keep, out_shape, proj_shape,
+                            _plain=_plain_adjoint)
     nd = mesh.size
     padn = (-n_tilt) % nd
     if padn:
@@ -333,7 +278,8 @@ def sirt_reconstruct(projections, matrices, out_shape,
                      projection_axis: int = 0, nonneg: bool = False,
                      initial=None, device: str = "cuda",
                      output: Optional[str] = None, mesh=None,
-                     _plain_forward: bool = False):
+                     _plain_forward: bool = False,
+                     _plain_adjoint: bool = False):
     """Simultaneous Iterative Reconstruction Technique (SIRT).
 
     Iterates ``x += relax * C A^T R (p - A x)``, where ``A`` is the
@@ -355,7 +301,8 @@ def sirt_reconstruct(projections, matrices, out_shape,
     slabs in z order.
 
     ``_plain_forward`` runs the forward operator through the kernels' plain
-    version on the same device: the reference the kernel path is held
+    version on the same device, ``_plain_adjoint`` the back-projection
+    through the kernel C's: the references the kernel path is held
     against."""
     if mesh is not None:
         device = str(mesh.devices[0])
@@ -369,14 +316,16 @@ def sirt_reconstruct(projections, matrices, out_shape,
                 f"out_shape {out_shape}")
     if mesh is not None:
         return _sirt_mesh(projs, matrices, minv, out_shape, iterations,
-                          relax, axis, nonneg, initial, mesh, output)
+                          relax, axis, nonneg, initial, mesh, output,
+                          _plain_adjoint)
     dev = projs.device
     sweep = plain_project_stack if _plain_forward else project_stack
 
     def forward(vol):
         return sweep(vol, matrices, "linear", "constant", axis)
 
-    adjoint = _make_adjoint(minv, keep, out_shape, tuple(projs.shape[1:]))
+    adjoint = _make_adjoint(minv, keep, out_shape, tuple(projs.shape[1:]),
+                            _plain=_plain_adjoint)
     eps = 1e-6
     row_sum = forward(pitched_empty(out_shape, device=dev).fill_(1.0))
     col_sum = adjoint(torch.ones_like(projs), minv)
@@ -450,7 +399,8 @@ def _forward_partial(x_slab, matrices, off: float, out_shape,
 
 
 def _sirt_mesh(projs, matrices, minv, out_shape, iterations, relax,
-               projection_axis, nonneg, initial, mesh, output):
+               projection_axis, nonneg, initial, mesh, output,
+               _plain_adjoint=False):
     """Volume-sharded SIRT: a z slab of the volume per shard
     (``reconstruction.py:491-598``).  Exact, not approximate:
 
@@ -471,7 +421,8 @@ def _sirt_mesh(projs, matrices, minv, out_shape, iterations, relax,
     D = out_shape[0]
     local = -(-D // nd)
     slab = (local,) + out_shape[1:]
-    adjoint_s = _make_adjoint(minv, keep, slab, proj_shape)
+    adjoint_s = _make_adjoint(minv, keep, slab, proj_shape,
+                              _plain=_plain_adjoint)
     devices, distinct = mesh.devices, mesh.distinct
     offs = [np.float32(i * local) for i in range(nd)]
     mvs = [_shifted(minv, off) for off in offs]
