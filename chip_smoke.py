@@ -14,8 +14,11 @@ It imports torch, numpy, scipy and the port only (never JAX, never
 2. build  -- ``nvcc`` builds the three kernels, ``csrc/affine_resample.cu``
    (the walk port, A: warp patches, a cubic interior fast path and float4
    rows), ``csrc/affine_slab.cu`` (the slab port, B) and
-   ``csrc/backproject.cu`` (the reconstructions' back-projection, C), in
-   parallel, each timed, with registers and spills;
+   ``csrc/backproject.cu`` (the reconstructions' back-projection, C: a
+   tile's projection rows staged in shared memory by TMA), and
+   ``tools/backproject_baseline.cu`` (C's row-gather path before its
+   redesign, timed beside it in phase 7), in parallel, each timed, with
+   registers and spills;
 3. parity -- A against its plain torch version on the card, bit for bit
    (``torch.equal``; and atol 5e-5 off knife edges, as before): order {1,
    3} x mode {constant, border} x cval {0, 1.5}, on 250^3, (40, 48, 56) and
@@ -44,8 +47,11 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    41-tilt series at 250^3 (projection axis 0), series along projection
    axes 1 and 2, the general path (``_force_general``, and a series that
    takes it by its geometry), an odd shape (37, 50, 61), one tilt, a
-   volume shard's slab-shifted matrices and rows partly and wholly off
-   the projection;
+   volume shard's slab-shifted matrices, rows partly and wholly off the
+   projection, and a row-gather matrix scaled 30x whose rows span more
+   than the first tile's window holds (the wrapper takes a smaller tile);
+   each row-gather case with its tile; no tap may fall outside its
+   window (C's device count, ``window_misses``, must stay 0);
 5. main   -- the main path at 250^3 float32, through the public API:
    ``StaticVolume`` 'linear' and 'filt_bspline' on 'cuda', ``.affine`` over
    16 random rotations and ``.affine_batch`` of the same 16, and the
@@ -90,9 +96,14 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    memory rate and its least arithmetic, for this run's matrices, over the
    fp32 rate) and ``torch.nn.functional.grid_sample`` (timed only; the
    port never calls it: for C, of the 41 projections at every voxel's
-   (rows, cols), then summed over the tilts); WBP at a tomogram's size,
-   (256, 512, 512) from 41 projections of (512, 512), C against its plain
-   version, bit for bit and timed;
+   (rows, cols), then summed over the tilts); C's row-gather path in
+   turns with ``tools/backproject_baseline.cu`` on the same inputs (C,
+   baseline, baseline, C; the two bit for bit), with C's tile, shared
+   memory a CTA, registers and the floor of a design that keeps bit
+   parity (4 separate FP32 instructions a voxel a tilt); WBP at a
+   tomogram's size, (256, 512, 512) from 41 projections of (512, 512), C
+   against its plain version, bit for bit and timed, and C there beside
+   the baseline; no window miss in the phase;
 8. registration -- ``examples/registration.py``'s blob phantom at 128^3
    (a large subtomogram box; the example uses 64^3), moved by its hidden
    rigid transform through the port's ``rodrigues_matrix`` and plain
@@ -133,6 +144,7 @@ The line before the last is the ``kernels`` summary; the last line is
 without a CUDA device the script exits 1 before printing a result.
 """
 
+import ctypes
 import json
 import os
 import subprocess
@@ -215,6 +227,11 @@ SHARD_SIRT_ITERATIONS = 3
 # the line's start (4), two fractions (2), three lerps (9) and the sum (1)
 BACKPROJECT_FLOPS = {True: 4, False: 16}
 TOMO_SHAPE = (256, 512, 512)       # a tomogram cryo-ET users reconstruct
+# phase 4b: a row-gather matrix whose rows coordinate is scaled this much
+# spans more rows than the first tile's window can hold
+LARGE_SPAN_SCALE = 30.0
+# C's row-gather path before its redesign, timed beside it (phase 7)
+BASELINE_SOURCE = "tools/backproject_baseline.cu"
 # SIRT against the plain forward and C's plain version: a few iterations
 # (the plain forward takes about half a second a sweep at 250^3)
 SIRT_REFERENCE_ITERATIONS = 3
@@ -357,6 +374,14 @@ def backproject_bound_ms(n, out_shape, proj_shape, rowgather):
     tb = 4.0 * (vout + n * proj_shape[0] * proj_shape[1]) / HBM_BYTES_PER_S
     to = BACKPROJECT_FLOPS[bool(rowgather)] * n * vout / FP32_FLOPS
     return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+
+def backproject_floor_ms(n, out_shape):
+    """The least time of C's row-gather path that keeps bit parity: no
+    contraction, so BACKPROJECT_FLOPS separate FP32 instructions a voxel a
+    tilt, at half the fp32 rate (which counts an FMA as 2)."""
+    vout = out_shape[0] * out_shape[1] * out_shape[2]
+    return BACKPROJECT_FLOPS[True] * n * vout / (FP32_FLOPS / 2) * 1e3
 
 
 def blob_phantom(np, ndimage, n, seed=0):
@@ -523,6 +548,40 @@ def main():
     walk = K.affine_resample
     slab = S.affine_slab
     bproj = BP.backproject
+
+    def row_gather_against_baseline(projs, minv, shape, reps):
+        """C's row-gather call (the wrapper: its pitched copy and launch)
+        and the baseline kernel's launch on the same projections, timed in
+        turns (C, baseline, baseline, C), each held bit for bit to the
+        other; with C's tile, shared memory a CTA and registers."""
+        coef = torch.from_numpy(BP.coefficients(minv, [1, 2], True)).to(dev)
+        out = torch.empty(shape, device=dev)
+
+        def baseline():
+            code = baseline_backproject(
+                projs.data_ptr(), *projs.shape, coef.data_ptr(), 2,
+                out.data_ptr(), *shape,
+                torch.cuda.current_stream().cuda_stream)
+            assert code == 0, code
+
+        baseline()
+        assert torch.equal(out, bproj(projs, minv, [1, 2], shape, True))
+        runs = {"c": [], "baseline": []}
+        for name in ("c", "baseline", "baseline", "c"):
+            fn = baseline if name == "baseline" else (
+                lambda: bproj(projs, minv, [1, 2], shape, True))
+            runs[name].append(time_ms(torch, fn, reps=reps))
+        tile = BP.rowgather_tile(BP.coefficients(minv, [1, 2], True),
+                                 shape[0], shape[1], projs.shape[1])
+        # registers and spills as ptxas reported them in phase 2's build
+        usage = _build.ptxas_usage(_build.BUILD_LOG.get(
+            BP.NAME, (None, ""))[1], f"rowgather_kernelILi{tile.lines}E")
+        regs, spill = usage or (None, None)
+        return {"ms": sum(runs["c"]) / 2, "runs_ms": runs["c"],
+                "baseline_ms": sum(runs["baseline"]) / 2,
+                "baseline_runs_ms": runs["baseline"], "tile": list(tile),
+                "smem_bytes": BP.smem_bytes(*tile), "registers": regs,
+                "spill_store_bytes": spill}
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     interp_of = {1: "linear", 3: "bspline"}
@@ -549,11 +608,32 @@ def main():
     # --------------------------------------------------------- 2. build
     # one nvcc per source, all started together
     kernel_modules = (K, S, BP)
-    cached = {m.NAME: _build.library_path(m.NAME).is_file()
-              for m in kernel_modules}
+    defines = {BP.NAME: BP.LAYOUT}
+    cached = {m.NAME: _build.library_path(
+        m.NAME, defines.get(m.NAME)).is_file() for m in kernel_modules}
+
+    def build_baseline():
+        """C's row-gather path before its redesign, timed beside it in
+        phase 7; nothing of the package builds or calls it."""
+        lib = _build.BUILD_DIR / "libbackproject_baseline.so"
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t = time.perf_counter()
+        src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           BASELINE_SOURCE)
+        proc = subprocess.run(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), src],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed building {BASELINE_SOURCE}:\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        return str(lib), time.perf_counter() - t, proc.stdout + proc.stderr
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernel_modules)) as pool:
-        list(pool.map(_build.build, [m.NAME for m in kernel_modules]))
+    with ThreadPoolExecutor(len(kernel_modules) + 1) as pool:
+        baseline_build = pool.submit(build_baseline)
+        list(pool.map(lambda m: _build.build(m.NAME, defines.get(m.NAME)),
+                      kernel_modules))
+        baseline_lib, baseline_seconds, baseline_log = baseline_build.result()
     for m in kernel_modules:
         m._library()
     wall = time.perf_counter() - t0
@@ -561,9 +641,20 @@ def main():
         seconds, log = _build.BUILD_LOG.get(m.NAME, (None, ""))
         emit("build", source=m.SOURCE, seconds=seconds,
              built_now=not cached[m.NAME], wall_seconds_all=wall,
-             flags=" ".join(_build.NVCC_FLAGS),
+             flags=" ".join(_build.flags(defines.get(m.NAME))),
              ptxas=[ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln])
+    emit("build", source=BASELINE_SOURCE, seconds=baseline_seconds,
+         built_now=True, wall_seconds_all=wall,
+         ptxas=[ln.strip() for ln in baseline_log.splitlines()
+                if "registers" in ln or "spill" in ln])
+    baseline_backproject = ctypes.CDLL(
+        baseline_lib).backproject_baseline_launch
+    baseline_backproject.argtypes = (
+        [ctypes.c_void_p] + [ctypes.c_int] * 3
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    baseline_backproject.restype = ctypes.c_int
 
     # ------------------------------------------ 3. A vs its plain version
     rng = np.random.default_rng(1)
@@ -762,6 +853,14 @@ def main():
         ("one_tilt", big, 0, recon_series[20:21], "rowgather", both),
     ]
     bp_rows = []
+    misses_before = BP.window_misses(dev)
+
+    def c_tile(minv, keep, out_shape, proj_shape):
+        """The row-gather tile the wrapper picks for this call."""
+        dep1 = 1 if keep[1] == 2 else 2
+        return list(BP.rowgather_tile(BP.coefficients(minv, keep, True),
+                                      out_shape[0], out_shape[dep1],
+                                      proj_shape[0]))
 
     def bp_check(name, projs, minv, keep, out_shape, rowgather):
         got = bproj(projs, minv, keep, out_shape, rowgather)
@@ -784,7 +883,9 @@ def main():
                            path == "rowgather")
             bp_rows.append({"case": name, "shape": list(shape),
                             "projection_axis": axis, "tilts": len(ms),
-                            "path": path, "max_abs_err": err})
+                            "path": path, "max_abs_err": err,
+                            "tile": c_tile(minv, keep, shape, pshape)
+                            if path == "rowgather" else None})
     # a volume shard's calls: 4 slabs of 63 planes, the slab offset folded
     # into column 3 of M^-1, the path decided on the unshifted matrices
     minv = inverses(np, recon_series)
@@ -814,10 +915,26 @@ def main():
         bp_rows.append({"case": "rows_off_the_projection",
                         "shape": list(big), "projection_axis": 0,
                         "tilts": len(off), "path": path, "max_abs_err": err})
+    # a scaled row-gather matrix: its rows span more than the first tile's
+    # window can hold in the shared memory, so the wrapper takes a smaller
+    # tile, still on the row-gather kernel
+    span = minv.copy()
+    span[:, 1, :2] *= np.float32(LARGE_SPAN_SCALE)
+    assert BP.row_gather(span, [1, 2], big, big[1:])
+    span_tile = c_tile(span, [1, 2], big, big[1:])
+    assert tuple(span_tile[:2]) != BP.TILES[0], span_tile
+    err = bp_check("large_span", projs, span, [1, 2], big, True)
+    bp_rows.append({"case": "large_span_scaled_rows", "shape": list(big),
+                    "projection_axis": 0, "tilts": len(span),
+                    "path": "rowgather", "max_abs_err": err,
+                    "tile": span_tile})
     bp_worst = max(r["max_abs_err"] for r in bp_rows)
     torch.cuda.synchronize()
+    bp_misses = BP.window_misses(dev) - misses_before
+    assert bp_misses == 0, ("taps outside their window", bp_misses)
     emit("parity_backproject", kernel=BP.NAME, cases=bp_rows,
-         equal_to_plain=True, max_abs_err=bp_worst)
+         equal_to_plain=True, max_abs_err=bp_worst,
+         window_misses=bp_misses)
     del projs
 
     # ---------------------------------------------------- 5. main path
@@ -1286,15 +1403,25 @@ def main():
     # C alone on the reconstruction's series (41 projections of 250^2) on
     # both paths, its plain version, its bound and a library yardstick
     rminv = inverses(np, rms)
+    misses_before = BP.window_misses(dev)
+    t["backproject_general_ms"] = time_ms(torch, lambda: bproj(
+        rprojs, rminv, [1, 2], big, False), reps=20)
     for path in ("rowgather", "general"):
         rowgather = path == "rowgather"
         key = f"backproject_{path}"
-        t[f"{key}_ms"] = time_ms(torch, lambda: bproj(
-            rprojs, rminv, [1, 2], big, rowgather), reps=20)
         t[f"{key}_plain_ms"] = time_ms(torch, lambda: BP.plain_backproject(
             rprojs, rminv, [1, 2], big, rowgather), reps=3, warmup=1)
         t[f"{key}_bound_ms"], t[f"{key}_bound_by"] = backproject_bound_ms(
             len(rms), big, big[1:], rowgather)
+    # the row-gather path beside C's row-gather kernel before its redesign
+    # (tools/backproject_baseline.cu) on the same inputs, in turns: C,
+    # baseline, baseline, C; its tile, shared memory a CTA and registers;
+    # the floor of a design that keeps bit parity (no contraction)
+    rowgather_c = row_gather_against_baseline(
+        rprojs, rminv, big, reps=20)
+    t.update({f"backproject_rowgather_{k}": v
+              for k, v in rowgather_c.items()})
+    t["backproject_rowgather_floor_ms"] = backproject_floor_ms(len(rms), big)
     # the host's waits on the device in one call of C, and of WBP, less
     # those of a call that only fills one float: C waits on nothing
     base_syncs = host_syncs(torch, lambda: torch.zeros(1, device=dev))
@@ -1350,11 +1477,16 @@ def main():
             tomo_projs, tomo_ms, TOMO_SHAPE, device="cuda", output="device",
             _plain_adjoint=plain), reps=2, warmup=1)
     tomo_minv = inverses(np, tomo_ms)
-    t["tomogram_backproject_ms"] = time_ms(torch, lambda: bproj(
-        tomo_projs, tomo_minv, [1, 2], TOMO_SHAPE, True), reps=5)
+    tomogram_c = row_gather_against_baseline(
+        tomo_projs, tomo_minv, TOMO_SHAPE, reps=5)
+    t.update({f"tomogram_backproject_{k}": v for k, v in tomogram_c.items()})
     t["tomogram_backproject_bound_ms"], t[
         "tomogram_backproject_bound_by"] = backproject_bound_ms(
             len(tomo_ms), TOMO_SHAPE, TOMO_SHAPE[1:], True)
+    t["tomogram_backproject_floor_ms"] = backproject_floor_ms(
+        len(tomo_ms), TOMO_SHAPE)
+    t["backproject_window_misses"] = BP.window_misses(dev) - misses_before
+    assert t["backproject_window_misses"] == 0, t["backproject_window_misses"]
     del tomo_projs
     vol_dev = torch.from_numpy(vol_np).to(dev)
     # what the pitched layout costs: the copy the one-shot call makes of a
@@ -2018,6 +2150,8 @@ def main():
         "bound_ms": t["backproject_rowgather_bound_ms"],
         "bound_by": t["backproject_rowgather_bound_by"],
         "library_ms": t["backproject_grid_sample_sum_ms"],
+        "baseline_ms": t["backproject_rowgather_baseline_ms"],
+        "window_misses": bp_misses + t["backproject_window_misses"],
         "shape": list(big), "matrices": "the reconstruction's 41-tilt "
         "series, projection axis 0, row-gather path, one launch",
         "equal_to_plain": True,
@@ -2030,6 +2164,7 @@ def main():
                     "library_ms": None},
         "tomogram": {"shape": list(TOMO_SHAPE),
                      "ms": t["tomogram_backproject_ms"],
+                     "baseline_ms": t["tomogram_backproject_baseline_ms"],
                      "bound_ms": t["tomogram_backproject_bound_ms"],
                      "bound_by": t["tomogram_backproject_bound_by"],
                      "wbp_ms": t["tomogram_wbp_ms"],

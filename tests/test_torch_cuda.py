@@ -701,3 +701,121 @@ def test_reconstructions_launch_backproject_and_equal_its_plain_version(dev):
         want = call(_plain_adjoint=True)
         assert backproject.launches == before + launches
         assert torch.equal(got, want)
+
+
+def _tilt_case(shape, dev, seed, n=41, scale=1.0):
+    """(projections on ``dev``, float32 M^-1) of the reconstruction's
+    series about array axis 2 (projection axis 0, row-gather), ``n`` tilts
+    from -60 to +60 degrees, the rows coordinate scaled by ``scale``."""
+    minv = np.stack([np.linalg.inv(_rotation_about(shape, 2, a))
+                     for a in np.linspace(-60, 60, n)]).astype(np.float32)
+    minv[:, 1, :2] *= np.float32(scale)
+    projs = torch.from_numpy(np.random.default_rng(seed).random(
+        (n,) + shape[1:]).astype(np.float32)).to(dev)
+    return projs, minv
+
+
+@pytest.mark.parametrize("shape", [(37, 50, 61), (9, 16, 8), (13, 20, 300),
+                                   (11, 9, 513)])
+def test_backproject_tiles_equal_plain_at_ragged_shapes(dev, shape):
+    """Shapes that are no multiple of the tile (4 x 8 lines, 256 columns),
+    two and three column chunks: bit for bit the plain version, one launch
+    a call, no window miss."""
+    import voltools_tpu_torch.kernels.backproject as bp
+    projs, minv = _tilt_case(shape, dev, seed=sum(shape), n=9)
+    minv[3, 1, 3] += np.float32(0.4 * shape[1])     # partly off
+    minv[5, 1, 3] = np.float32(-1e10)               # wholly off
+    misses = bp.window_misses(dev)
+    before = backproject.launches
+    got = backproject(projs, minv, [1, 2], shape)
+    assert backproject.launches == before + 1
+    want = plain_backproject(projs, minv, [1, 2], shape, True)
+    assert torch.equal(got, want), float((got - want).abs().max())
+    assert bp.window_misses(dev) == misses
+
+
+def test_backproject_large_span_takes_a_small_tile(dev):
+    """A scaled row-gather matrix: the first tile's window does not fit
+    the shared memory, so the host picks a smaller tile; it stays on the
+    row-gather kernel and stays right, with no window miss."""
+    import voltools_tpu_torch.kernels.backproject as bp
+    shape = (64, 250, 250)
+    projs, minv = _tilt_case(shape, dev, seed=4, n=7, scale=30.0)
+    table = bp.coefficients(minv, [1, 2], True)
+    assert row_gather(minv, [1, 2], shape, tuple(projs.shape[1:]))
+    tile = bp.rowgather_tile(table, shape[0], shape[1], shape[1])
+    assert tile[:2] != bp.TILES[0]
+    assert bp.smem_bytes(*tile) <= bp.SMEM_LIMIT
+    misses = bp.window_misses(dev)
+    got = backproject(projs, minv, [1, 2], shape)
+    assert torch.equal(got, plain_backproject(projs, minv, [1, 2], shape,
+                                              True))
+    assert bp.window_misses(dev) == misses
+
+
+def test_backproject_window_misses_are_counted_and_still_right(dev,
+                                                               monkeypatch):
+    """A window capped below what the tile needs: the taps outside it are
+    read from global memory and counted, and the result stays right."""
+    import voltools_tpu_torch.kernels.backproject as bp
+    shape = (20, 30, 40)
+    projs, minv = _tilt_case(shape, dev, seed=6, n=5)
+    monkeypatch.setattr(bp, "rowgather_tile",
+                        lambda *args: bp.RowTile(8, 8, 2))
+    misses = bp.window_misses(dev)
+    got = backproject(projs, minv, [1, 2], shape)
+    assert torch.equal(got, plain_backproject(projs, minv, [1, 2], shape,
+                                              True))
+    assert bp.window_misses(dev) > misses
+
+
+def test_backproject_no_window_miss_on_the_tilt_series(dev):
+    """The reconstruction's 41-tilt series at 96^3 and a tomogram-like
+    slab: every tap lies in its tile's window."""
+    import voltools_tpu_torch.kernels.backproject as bp
+    for shape in ((96, 96, 96), (32, 160, 160)):
+        projs, minv = _tilt_case(shape, dev, seed=2)
+        misses = bp.window_misses(dev)
+        got = backproject(projs, minv, [1, 2], shape)
+        assert torch.equal(got, plain_backproject(projs, minv, [1, 2],
+                                                  shape, True))
+        assert bp.window_misses(dev) == misses
+
+
+def test_backproject_tiled_on_a_side_stream_and_the_last_card(dev):
+    import voltools_tpu_torch.kernels.backproject as bp
+    shape = (40, 70, 90)
+    projs, minv = _tilt_case(shape, dev, seed=8, n=11)
+    want = plain_backproject(projs, minv, [1, 2], shape, True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = backproject(projs, minv, [1, 2], shape)
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch.equal(got, want)
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    misses = bp.window_misses(last)
+    got = backproject(projs.to(last), minv, [1, 2], shape)
+    assert torch.cuda.current_device() == 0 and got.device == last
+    assert torch.equal(got.to(dev), want)
+    assert bp.window_misses(last) == misses
+
+
+def test_backproject_build_reports_registers_without_spills(
+        dev, tmp_path, monkeypatch):
+    """A fresh build of C with the wrapper's layout: ptxas reports each
+    row-gather instantiation within the registers of two 256-thread CTAs
+    an SM, with no spill; a launch with the layout's shared memory runs."""
+    import voltools_tpu_torch.kernels.backproject as bp
+    from voltools_tpu_torch.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    _build.build(bp.NAME, bp.LAYOUT)
+    log = _build.BUILD_LOG[bp.NAME][1]
+    for lines in (1, bp.LAYOUT["BP_LINES"]):
+        regs, spill = _build.ptxas_usage(log, f"rowgather_kernelILi{lines}E")
+        assert 0 < regs <= 128 and spill == 0, (lines, regs, spill)
+    shape = (16, 24, 40)
+    projs, minv = _tilt_case(shape, dev, seed=9, n=5)
+    assert torch.equal(backproject(projs, minv, [1, 2], shape),
+                       plain_backproject(projs, minv, [1, 2], shape, True))

@@ -37,6 +37,8 @@ from .ops.interpolation import AVAILABLE_INTERPOLATIONS
 from .volume import StaticVolume
 from . import models, ops, parallel, utils
 
+__version__ = "0.6.0"
+
 
 def __getattr__(name):
     # lazy: the device list is read when asked for, never at import
@@ -61,4 +63,5 @@ __all__ = [
     "ops",
     "parallel",
     "utils",
+    "__version__",
 ]
