@@ -137,7 +137,28 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    mesh reconstructions bit for bit against C's plain version
    (``_plain_adjoint=True``; the mesh SIRT at one iteration).  Times per call beside
    the single-device ones, the device operations of one call, and the
-   peak memory of one rotation through 'stream' and 'gather'.
+   peak memory of one rotation through 'stream' and 'gather';
+11. examples -- the port's four examples, ``examples/torch_*.py``, each
+   ``main(device='cuda', figure=None)`` at its JAX counterpart's size:
+   the transform at 64^3 (mirror prefilter, then A), the three projection
+   levels at 96^3 (41 tilts, 'sxyz', A), the reconstruction at 64^3 (the
+   projector and SIRT's forward on B, WBP and SIRT's 30 iterations on C)
+   and the registration at 64^3 (2 levels of 300 Adam steps; A makes the
+   moving volume and applies the result).  Each runs its pipeline twice
+   and times the second pass.  The counters are set to 0 before each
+   example and read after, each equal to the planner's count for its
+   launches, and A, B and C must each have run.  Each kernel is held
+   against its plain version at the examples' shapes: A's launches (the
+   transform, the moving volume and the applied registration) against
+   the plain sampler on the same input (ATOL off knife edges), the
+   projections of both projectors (A at 96^3, B at 64^3) against
+   ``plain_project_stack`` (two orders of a sum of n non-negative terms:
+   2 (n - 1) 2**-24 of the largest projection), WBP and SIRT (C) bit for
+   bit against ``_plain_adjoint=True``.  The transform is held against
+   scipy too (1e-4 off knife edges), the projection levels against each
+   other, the interior correlations within 1e-4 of the JAX example's, and
+   the registration's recovery within 0.3 x 24 / 64 degrees and 0.05
+   voxel.
 
 The line before the last is the ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -238,6 +259,13 @@ SIRT_REFERENCE_ITERATIONS = 3
 # the matrices of tests/test_pallas.py, on its (40, 48, 56) volume
 PALLAS_SHAPE = (40, 48, 56)
 PALLAS_CENTER = (19.5, 23.5, 27.5)
+# examples/reconstruction.py's interior correlations with its phantom,
+# from the JAX package on the CPU at the example's own 64^3 and 30 SIRT
+# iterations (the card's machine has no JAX); the card's must agree to
+# the 4 digits the example prints
+JAX_RECON_CORRELATION = {"wbp": 0.8591802546381944,
+                         "sirt": 0.8797051681315219}
+EXAMPLE_CORR_ATOL = 1e-4
 
 CARD = {}
 
@@ -282,6 +310,13 @@ def errors(torch, got, want, m, half=False):
     assert torch.isfinite(got).all(), "non-finite kernel output"
     near = knife_mask(torch, m, tuple(got.shape), got.device, half)
     return (float(torch.where(near, 0.0, diff).max()), float(diff.max()))
+
+
+def example_sum_atol(n, largest):
+    """How far two sums of the same ``n`` non-negative float32 terms, in
+    two orders, may lie apart: each lies within (n - 1) * 2**-24 of the
+    exact sum, relative, which is at most ``largest``."""
+    return 2 * (n - 1) * 2.0 ** -24 * largest
 
 
 def matrix_set(np, transform_matrix, shape, seed):
@@ -593,6 +628,21 @@ def main():
     def routed(ms, shape, order):
         """The planner's plan: B takes the launch and is the faster."""
         return choose_plan(ms, shape, interp_of[order])
+
+    def planned(launches, back_projections=0):
+        """The planner's kernel for each resampling launch, given as
+        (matrices, shape, order), and C's ``back_projections``."""
+        counts = {S.NAME: 0, K.NAME: 0, BP.NAME: back_projections}
+        for ms, shape, order in launches:
+            counts[S.NAME if routed(ms, shape, order) is not None
+                   else K.NAME] += 1
+        return counts
+
+    def chunks_of(ms, shape):
+        """A stack of matrices in the launches the projector and
+        ``StaticVolume.affine_batch`` make of it."""
+        chunk = vt.StaticVolume.batch_chunk(shape)
+        return [ms[p:p + chunk] for p in range(0, len(ms), chunk)]
 
     # ---------------------------------------------------------- 1. card
     smi = card_line()
@@ -952,10 +1002,7 @@ def main():
     calls = ([rots[i] for i in range(N_ROT)] + [rots]) * 2 + [
         rots[0], rots[1], rots[0]]
     orders = [1] * (N_ROT + 1) + [3] * (N_ROT + 1) + [1, 3, 3]
-    expected = {S.NAME: 0, K.NAME: 0, BP.NAME: 0}
-    for m, order in zip(calls, orders):
-        expected[S.NAME if routed(m, big, order) is not None
-                 else K.NAME] += 1
+    expected = planned([(m, big, order) for m, order in zip(calls, orders)])
 
     torch.cuda.synchronize()
     walk.launches = slab.launches = bproj.launches = 0
@@ -1023,21 +1070,16 @@ def main():
     angles = np.arange(*TILTS)
     tms = tilt_series(np, transform_matrix, big, TILT_AXIS)
     rms = tilt_series(np, transform_matrix, big, RECON_TILT_AXIS)
-    chunk = vt.StaticVolume._BATCH_BYTES_BUDGET // (4 * SIZE ** 3)
-
-    def chunks_of(ms):
-        return [ms[p:p + chunk] for p in range(0, len(ms), chunk)]
-
-    # C: one back-projection per WBP; SIRT's column sums and one per
-    # iteration
-    expected_tilt = {S.NAME: 0, K.NAME: 0, BP.NAME: 1 + 1 + SIRT_ITERATIONS}
     # the projector's series in both orders, the reconstruction's series
-    # once, then SIRT: the row sums and one forward sweep per iteration
-    for ms, order, times in ((tms, 1, 1), (tms, 3, 1),
-                             (rms, 1, 2 + SIRT_ITERATIONS)):
-        for c in chunks_of(ms):
-            expected_tilt[S.NAME if routed(c, big, order) is not None
-                          else K.NAME] += times
+    # once, then SIRT: the row sums and one forward sweep per iteration;
+    # C: one back-projection per WBP, SIRT's column sums and one per
+    # iteration
+    expected_tilt = planned(
+        [(c, big, order)
+         for ms, order, times in ((tms, 1, 1), (tms, 3, 1),
+                                  (rms, 1, 2 + SIRT_ITERATIONS))
+         for c in chunks_of(ms, big) for _ in range(times)],
+        back_projections=1 + 1 + SIRT_ITERATIONS)
 
     torch.cuda.synchronize()
     walk.launches = slab.launches = bproj.launches = 0
@@ -1129,15 +1171,15 @@ def main():
         corr[name] = float(np.corrcoef(got[inner].cpu().numpy().ravel(),
                                        vol_np[inner].ravel())[0, 1])
     assert S.overflows(dev) == 0
-    first = chunks_of(tms)[0]
+    first = chunks_of(tms, big)[0]
     emit("tilt", shape=list(big), tilts=len(tms), tilt_axis=TILT_AXIS,
          reconstruction_tilt_axis=RECON_TILT_AXIS,
-         chunks=[len(c) for c in chunks_of(tms)], seconds=seconds,
+         chunks=[len(c) for c in chunks_of(tms, big)], seconds=seconds,
          launches=tilt_launches, expected_launches=expected_tilt,
          extents={"linear": list(plan_of(first, big, 1).extents),
                   "cubic": list(plan_of(first, big, 3).extents),
                   "reconstruction": list(
-                      plan_of(chunks_of(rms)[0], big, 1).extents)},
+                      plan_of(chunks_of(rms, big)[0], big, 1).extents)},
          max_abs_err_vs_plain=proj_err, proj_atol=PROJ_ATOL,
          scipy_first_tilt=scipy_err, scipy_atol=PROJ_SCIPY_ATOL,
          recon_rel_err_vs_plain_forward_and_adjoint=recon_err,
@@ -1253,7 +1295,7 @@ def main():
             # planner routes it to
             groups = [(torch.from_numpy(c).to(dev), plan_of(c, big, order),
                        routed(c, big, order), walk_patch(c))
-                      for c in chunks_of(ms)]
+                      for c in chunks_of(ms, big)]
 
             def batched(kind):
                 for c_dev, plan, route_plan, patch in groups:
@@ -1575,11 +1617,8 @@ def main():
     torch.cuda.synchronize()
     reg_launches = {S.NAME: slab.launches, K.NAME: walk.launches,
                     BP.NAME: bproj.launches}
-    expected_reg = {S.NAME: 0, K.NAME: 0, BP.NAME: 0}
-    for interp in interps:
-        expected_reg[S.NAME if routed(results[interp].matrix, rshape,
-                                      spline_order(interp)) is not None
-                     else K.NAME] += 1
+    expected_reg = planned([(results[interp].matrix, rshape,
+                             spline_order(interp)) for interp in interps])
     assert reg_launches == expected_reg, (reg_launches, expected_reg)
     assert reg_launches[K.NAME] > 0, reg_launches
 
@@ -2075,15 +2114,212 @@ def main():
          "max_memory_allocated after reset_peak_memory_stats, above what "
          "was allocated before the call, the result included")
 
+    # --------------------------------------------------- 11. examples
+    import contextlib
+    import importlib.util
+    import io
+
+    def run_example(name):
+        """examples/torch_<name>.py's ``main`` on 'cuda' at its own size,
+        with the launches per kernel (the counters set to 0 just before,
+        read just after), the host seconds of the call and the lines it
+        printed (kept off this script's standard output, which holds
+        JSON lines)."""
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "examples", f"torch_{name}.py")
+        spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        torch.cuda.synchronize()
+        walk.launches = slab.launches = bproj.launches = 0
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            result = module.main(device="cuda", figure=None)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {S.NAME: slab.launches, K.NAME: walk.launches,
+                    BP.NAME: bproj.launches}
+        result["printed"] = printed.getvalue().splitlines()
+        return module, result, launches, seconds
+
+    example_rows = {}
+    example_launches = {S.NAME: 0, K.NAME: 0, BP.NAME: 0}
+
+    def record(name, launches, expected, seconds, **fields):
+        assert launches == expected, (name, launches, expected)
+        for k in example_launches:
+            example_launches[k] += launches[k]
+        example_rows[name] = dict(launches=launches,
+                                  expected_launches=expected,
+                                  seconds=seconds, **fields)
+
+    def resampled_vs_plain(name, got, volume, m, prefilter=False):
+        """A host volume that one resampling launch made, against the
+        plain sampler on the card on the same input (after the same
+        prefilter): ATOL off knife edges, as on the main path."""
+        vol = torch.from_numpy(volume).to(dev)
+        if prefilter:
+            vol = bspline_prefilter(vol)
+        want = affine_sample(vol, torch.as_tensor(m, dtype=torch.float32,
+                                                  device=dev),
+                             interp_of[3 if prefilter else 1],
+                             prefiltered=True)
+        got = torch.from_numpy(got).to(dev)
+        off, every = errors(torch, got, want, m)
+        assert off <= ATOL, (name, "against the plain sampler", off)
+        return {"max_abs_err": off, "max_abs_err_all_voxels": every,
+                "equal": bool(torch.equal(got, want)), "atol": ATOL}
+
+    def projections_vs_plain(name, got, volume, ms):
+        """A projector's host series against ``plain_project_stack`` on the
+        card (one plain resampling a tilt, then the sum over axis 0)."""
+        want = plain_project_stack(torch.from_numpy(volume).to(dev), ms,
+                                   "linear", "constant", 0).cpu().numpy()
+        tol = example_sum_atol(volume.shape[0], float(np.abs(want).max()))
+        err = float(np.abs(got - want).max())
+        assert err <= tol, (name, "against plain_project_stack", err, tol)
+        return {"max_abs_err": err, "equal": bool(np.array_equal(got, want)),
+                "atol": tol}
+
+    # transformation: the prefilter, then one resampling launch a pass
+    ex, res, launches, seconds = run_example("transformation")
+    eshape = res["volume"].shape
+    off, every = errors(torch, torch.from_numpy(res["device"]),
+                        torch.from_numpy(res["scipy"]), res["matrix"])
+    assert off <= SCIPY_ATOL, ("transformation against scipy", off)
+    plain = resampled_vs_plain("transformation", res["device"],
+                               res["volume"], res["matrix"], prefilter=True)
+    record("transformation", launches,
+           planned([(res["matrix"], eshape, 3)] * res["passes"]), seconds,
+           shape=list(eshape), interpolation=ex.INTERPOLATION,
+           max_abs_err_vs_scipy=off, max_abs_err_vs_scipy_all_voxels=every,
+           atol=SCIPY_ATOL, vs_plain=plain, scipy_host_ms=res["scipy_ms"],
+           device_ms=res["device_ms"], device_name=res["card"],
+           printed=res["printed"])
+
+    # projections: 41 one-shot calls and 41 StaticVolume calls (one matrix
+    # each), then the projector's launches, each pass
+    ex, res, launches, seconds = run_example("projections")
+    eshape = res["volume"].shape
+    ecenter = np.divide(np.subtract(eshape, 1), 2)
+    singles = [transform_matrix(rotation=(0.0, a, 0.0),
+                                rotation_order=ex.ROTATION_ORDER,
+                                center=ecenter) for a in ex.ANGLES]
+    one_pass = ([(m, eshape, 1) for m in singles] * 2
+                + [(c, eshape, 1)
+                   for c in chunks_of(res["matrices"], eshape)])
+    levels = {k: res[k] for k in ("one_shot", "static_volume", "projector")}
+    sum_tol = example_sum_atol(eshape[0], max(float(np.abs(v).max())
+                                              for v in levels.values()))
+    agreement = {f"{a}_vs_{b}": float(np.abs(levels[a] - levels[b]).max())
+                 for a, b in (("one_shot", "static_volume"),
+                              ("one_shot", "projector"),
+                              ("static_volume", "projector"))}
+    assert max(agreement.values()) <= sum_tol, (agreement, sum_tol)
+    plain = projections_vs_plain("projections", res["projector"],
+                                 res["volume"], res["matrices"])
+    n_tilts = len(ex.ANGLES)
+    record("projections", launches, planned(one_pass * res["passes"]),
+           seconds, shape=list(eshape), tilts=n_tilts,
+           rotation_order=ex.ROTATION_ORDER, tilt_axis=ex.TILT_AXIS,
+           max_abs_diff_between_levels=agreement, atol=sum_tol,
+           projector_vs_plain=plain, ms=res["ms"],
+           ms_per_tilt={k: v / n_tilts for k, v in res["ms"].items()},
+           one_shot_note="each rotated volume is copied to the host and "
+           "summed there, as the JAX example does",
+           device_name=res["card"], printed=res["printed"])
+    del levels
+
+    # reconstruction: the projection, SIRT's row sums and one forward
+    # sweep an iteration; C once a WBP, then SIRT's column sums and once
+    # an iteration
+    ex, res, launches, seconds = run_example("reconstruction")
+    eshape = res["volume"].shape
+    sweeps = 2 + res["iterations"]
+    expected = planned([(c, eshape, 1)
+                        for c in chunks_of(res["matrices"], eshape)]
+                       * sweeps * res["passes"],
+                       back_projections=sweeps * res["passes"])
+    projections = projections_vs_plain("reconstruction", res["projections"],
+                                       res["volume"], res["matrices"])
+    equal = {
+        "wbp": np.array_equal(res["wbp"], wbp_reconstruct(
+            res["projections"], res["matrices"], eshape, device="cuda",
+            _plain_adjoint=True)),
+        "sirt": np.array_equal(res["sirt"], sirt_reconstruct(
+            res["projections"], res["matrices"], eshape,
+            iterations=res["iterations"], device="cuda",
+            _plain_adjoint=True))}
+    assert all(equal.values()), ("with C != with its plain version", equal)
+    corr = res["interior_correlation"]
+    corr_diff = {k: abs(corr[k] - JAX_RECON_CORRELATION[k])
+                 for k in JAX_RECON_CORRELATION}
+    assert max(corr_diff.values()) <= EXAMPLE_CORR_ATOL, (corr, corr_diff)
+    record("reconstruction", launches, expected, seconds, shape=list(eshape),
+           tilts=len(res["angles"]), iterations=res["iterations"],
+           projections_vs_plain=projections, equal_to_plain_adjoint=equal,
+           interior_correlation=corr,
+           jax_interior_correlation=JAX_RECON_CORRELATION,
+           correlation_atol=EXAMPLE_CORR_ATOL, ms=res["ms"],
+           project_ms_per_tilt=res["ms"]["project"] / len(res["angles"]),
+           sirt_ms_per_iteration=res["ms"]["sirt"] / res["iterations"],
+           project_note="the projections are copied to the host, as the "
+           "JAX example returns them",
+           device_name=res["card"], printed=res["printed"])
+
+    # registration: the moving volume (once), then RegistrationResult.apply
+    # each pass; a single matrix routes to A whatever its values, so the
+    # first pass's matrix routes as the last pass's
+    ex, res, launches, seconds = run_example("registration")
+    eshape = res["reference"].shape
+    deg_tol = 0.3 * 24 / eshape[0]
+    assert np.isfinite(res["loss_history"]).all()
+    assert (res["rotation_error_deg"] <= deg_tol
+            and res["translation_error_vox"] <= REG_T_TOL), (
+        res["rotation_error_deg"], res["translation_error_vox"], deg_tol)
+    assert res["misfit"]["after"] < res["misfit"]["before"], res["misfit"]
+    plain = {"misaligned": resampled_vs_plain(
+                 "registration's moving volume", res["misaligned"],
+                 res["reference"], res["m_true"]),
+             "registered": resampled_vs_plain(
+                 "RegistrationResult.apply", res["registered"],
+                 res["moving"], res["matrix"])}
+    record("registration", launches,
+           planned([(res["m_true"], eshape, 1)]
+                   + [(res["matrix"], eshape, 1)] * res["passes"]),
+           seconds, shape=list(eshape), steps=len(res["loss_history"]),
+           w=res["w"].tolist(), t=res["t"].tolist(),
+           w_expect=res["w_expect"].tolist(),
+           t_expect=res["t_expect"].tolist(),
+           rotation_error_deg=res["rotation_error_deg"],
+           translation_error_vox=res["translation_error_vox"],
+           bounds={"rotation_deg": deg_tol, "translation_vox": REG_T_TOL},
+           phase_correlation_shift=res["phase_correlation_shift"].tolist(),
+           misfit=res["misfit"], vs_plain=plain, ms=res["ms"],
+           register_ms_per_step=res["ms"]["register"]
+           / len(res["loss_history"]), device_name=res["card"],
+           printed=res["printed"])
+    del res
+    # every kernel runs in one example at least
+    assert all(v > 0 for v in example_launches.values()), example_launches
+    emit("examples", launches=example_launches, examples=example_rows,
+         method="each example's main(device='cuda', figure=None) at its "
+         "own size; it runs its pipeline twice and times the second pass "
+         "on the host clock read after torch.cuda.synchronize(); its "
+         "launches, both passes', against the planner's for each")
+
     main_tilt = {k: main_launches[k] + tilt_launches[k] + reg_launches[k]
-                 + shard_launches[k] for k in main_launches}
+                 + shard_launches[k] + example_launches[k]
+                 for k in main_launches}
     kernels = [{
         "name": S.NAME, "route": "cuda", "source": S.SOURCE,
         "replaces": S.REPLACES, "launches": main_tilt[S.NAME],
         "launches_by_path": {"main": main_launches[S.NAME],
                              "tilt": tilt_launches[S.NAME],
                              "registration": reg_launches[S.NAME],
-                             "sharded": shard_launches[S.NAME]},
+                             "sharded": shard_launches[S.NAME],
+                             "examples": example_launches[S.NAME]},
         "max_abs_err": max(slab_worst[1], slab_worst[3]),
         "ms": t["recon_tilt_linear_batch_slab_ms_per_matrix"],
         "plain_ms": t["recon_tilt_linear_plain_ms"],
@@ -2113,7 +2349,8 @@ def main():
         "launches_by_path": {"main": main_launches[K.NAME],
                              "tilt": tilt_launches[K.NAME],
                              "registration": reg_launches[K.NAME],
-                             "sharded": shard_launches[K.NAME]},
+                             "sharded": shard_launches[K.NAME],
+                             "examples": example_launches[K.NAME]},
         "max_abs_err": max(worst[1], worst[3], main_err[1], main_err[3]),
         "ms": t["random_linear_walk_ms"],
         "plain_ms": t["random_linear_plain_ms"],
@@ -2143,7 +2380,8 @@ def main():
         "launches_by_path": {"main": main_launches[BP.NAME],
                              "tilt": tilt_launches[BP.NAME],
                              "registration": reg_launches[BP.NAME],
-                             "sharded": shard_launches[BP.NAME]},
+                             "sharded": shard_launches[BP.NAME],
+                             "examples": example_launches[BP.NAME]},
         "max_abs_err": bp_worst,
         "ms": t["backproject_rowgather_ms"],
         "plain_ms": t["backproject_rowgather_plain_ms"],

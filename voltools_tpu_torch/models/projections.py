@@ -19,7 +19,6 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..kernels.affine_resample import MAX_BATCH
 from ..kernels.layout import pitched
 from ..ops.interpolation import (AVAILABLE_INTERPOLATIONS, MODES,
                                  needs_prefilter)
@@ -53,8 +52,7 @@ def project_stack(volume: torch.Tensor, matrices: np.ndarray,
     proj_shape = tuple(s for a, s in enumerate(shape) if a != axis)
     result = torch.empty((n,) + proj_shape, dtype=torch.float32,
                          device=volume.device)
-    chunk = max(1, min(MAX_BATCH, StaticVolume._BATCH_BYTES_BUDGET
-                       // (4 * int(np.prod(shape)))))
+    chunk = StaticVolume.batch_chunk(shape)
     stack = torch.empty((min(chunk, n),) + shape, dtype=torch.float32,
                         device=volume.device)
     for pos in range(0, n, chunk):

@@ -58,6 +58,14 @@ class StaticVolume:
     # keep the device output stack under ~2 GB per launch
     _BATCH_BYTES_BUDGET = 2 << 30
 
+    @classmethod
+    def batch_chunk(cls, shape) -> int:
+        """How many float32 volumes of ``shape`` one launch resamples: as
+        many as fit ``_BATCH_BYTES_BUDGET``, at least one, at most the
+        kernels' ``MAX_BATCH``."""
+        vol_bytes = 4 * int(np.prod(shape))
+        return max(1, min(MAX_BATCH, cls._BATCH_BYTES_BUDGET // vol_bytes))
+
     def __init__(self, data, interpolation: str = "linear",
                  device: str = "cuda", mode: str = "constant",
                  cval: float = 0.0, prefilter_boundary: str = "mirror",
@@ -156,8 +164,7 @@ class StaticVolume:
         full = (n,) + self.shape
         if isinstance(output, np.ndarray):
             _check_shape(output.shape, full)
-        vol_bytes = 4 * int(np.prod(self.shape))
-        chunk = max(1, min(MAX_BATCH, self._BATCH_BYTES_BUDGET // vol_bytes))
+        chunk = self.batch_chunk(self.shape)
 
         timer = ProfileTimer(self._dev) if profile else None
         if timer:
