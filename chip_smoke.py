@@ -11,11 +11,13 @@ It imports torch, numpy, scipy and the port only (never JAX, never
 
 1. card   -- the ``nvidia-smi`` name and power limit, torch, CUDA and nvcc
    versions;
-2. build  -- ``nvcc`` builds the three kernels, ``csrc/affine_resample.cu``
+2. build  -- ``nvcc`` builds the four kernels, ``csrc/affine_resample.cu``
    (the walk port, A: warp patches, a cubic interior fast path and float4
-   rows), ``csrc/affine_slab.cu`` (the slab port, B) and
+   rows), ``csrc/affine_slab.cu`` (the slab port, B),
    ``csrc/backproject.cu`` (the reconstructions' back-projection, C: a
-   tile's projection rows staged in shared memory by TMA), and
+   tile's projection rows staged in shared memory by TMA) and
+   ``csrc/partial_sample.cu`` (the sharded paths' per-slab partial sample,
+   D: D1 the stream body's step, D2 the mesh SIRT's forward), and
    ``tools/backproject_baseline.cu`` (C's row-gather path before its
    redesign, timed beside it in phase 7), in parallel, each timed, with
    registers and spills;
@@ -52,6 +54,19 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    than the first tile's window holds (the wrapper takes a smaller tile);
    each row-gather case with its tile; no tap may fall outside its
    window (C's device count, ``window_misses``, must stay 0);
+4c. parity_partial_sample -- D1 against its plain version on the card,
+   bit for bit (``torch.equal``): the stream body's ring through D1 and
+   through its plain steps (``_stream_body(m, plain=True)``) on 4 shards
+   of a 250^3 volume (the last shard padded: 250 planes in 4 x 63) and
+   of (37, 50, 61) (4 x 10), order {1, 3} x mode {constant, border with
+   cval 1.5}, for two random rotations, a half-voxel shift (every stencil
+   straddles two planes, slab boundaries included) and a scale whose taps
+   pass the global edges, SHARDS x SHARDS launches a ring; D2 against
+   ``plain_partial_project`` per shard (one launch each), within the
+   order of a float32 sum, 2 (n_p - 1) 2**-24 of the plain projection of
+   the slab's magnitudes (``sum_order_atol``): the reconstruction's
+   41-tilt series along projection axis 0 at 250^3, random rotations
+   along axes 1 and 2, the odd shape's series;
 5. main   -- the main path at 250^3 float32, through the public API:
    ``StaticVolume`` 'linear' and 'filt_bspline' on 'cuda', ``.affine`` over
    16 random rotations and ``.affine_batch`` of the same 16, and the
@@ -130,14 +145,25 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    the reconstruction's 41 tilts, 11 a shard (to B), with each shard's
    ``last_dispatch()``; ``wbp_reconstruct(mesh=)`` in both modes and
    ``sirt_reconstruct(mesh=)``.  The counters are set to 0 before each
-   call and must then read what ``planner.route`` gives per shard, C's
-   one launch per shard for each mesh WBP and shards x (1 + iterations)
-   for the mesh SIRT; each result is held against the single-device call
-   and the plain version (SHARD_ATOL, SHARD_STREAM_ATOL, RECON_RTOL), the
-   mesh reconstructions bit for bit against C's plain version
-   (``_plain_adjoint=True``; the mesh SIRT at one iteration).  Times per call beside
-   the single-device ones, the device operations of one call, and the
-   peak memory of one rotation through 'stream' and 'gather';
+   call and must then read what ``planner.route`` gives per shard, D1's
+   shards x shards launches for a rotation through the stream body (and
+   none of A or B), C's one launch per shard for each mesh WBP and C's
+   and D2's shards x (1 + iterations) for the mesh SIRT; each result is
+   held against the single-device call and the plain version (SHARD_ATOL,
+   SHARD_STREAM_ATOL, RECON_RTOL), the mesh reconstructions bit for bit
+   against C's plain version (``_plain_adjoint=True``; the mesh SIRT at
+   one iteration).  Times per call beside the single-device ones and
+   beside the plain stream body and the mesh SIRT with its plain forward
+   (``_plain_forward=True``), timed once, the device operations of one
+   call, and the peak memory of one rotation through 'stream' and
+   'gather'; D1 in the stream body's call (the call, and the device time
+   of its 16 launches alone: events around each launch, the call queued
+   behind a sleep kernel) and D2's 4 launches of a sweep (the same two
+   times), beside their bounds (D1's from the source voxels each shard's
+   taps read), their plain versions, what torch.profiler records of the
+   same calls and ``grid_sample`` (timed only: D1 linear trilinear with
+   zero padding on each slab at the shard's coordinates; D2 per tilt on
+   each slab, then summed over the projection axis);
 11. examples -- the port's four examples, ``examples/torch_*.py``, each
    ``main(device='cuda', figure=None)`` at its JAX counterpart's size:
    the transform at 64^3 (mirror prefilter, then A), the three projection
@@ -166,11 +192,13 @@ without a CUDA device the script exits 1 before printing a result.
 """
 
 import ctypes
+import functools
 import json
 import os
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 SIZE = 250                 # the reference benchmark's volume, 250^3 float32
@@ -207,6 +235,9 @@ FP32_FLOPS = 67e12         # H100 SXM fp32 rate outside the tensor cores
 # voxel outside the source needs only its coordinates.
 FLOPS_INSIDE = {1: 18 + 3 + 3 * 1 + 2 * 14, 3: 18 + 3 + 3 * 14 + 2 * 84}
 FLOPS_OUTSIDE = 18
+# a sleep kernel of about 50 ms at the H100's clock, long enough for the host
+# to queue a whole stream-body rotation or D2 sweep behind it
+SLEEP_CYCLES = 10 ** 8
 # phase 8: examples/registration.py's phantom and hidden transform
 # (:30-39, :49-50) in a 128^3 box, registered in 2 levels of 200 steps
 REG_SIZE = 128
@@ -551,6 +582,123 @@ def bound_ms(order, in_shape, out_shape, inside, per_launch):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def d1_bound_ms(torch, vt, matrices, true_shape, local, order, mode, device):
+    """Least time on the card for D1's launches in one stream-body rotation
+    (a launch per output shard and source slab, ``matrices`` the shards'
+    slab-shifted matrices), the larger of the bytes over the memory rate
+    and the operations over the fp32 rate, from these matrices'
+    coordinates.  Bytes: each source voxel that a shard's inside voxels'
+    taps read (with ``mode``'s index rule), once per shard; the output
+    slab read and written where an inside voxel's z stencil meets a slab;
+    cval written once at each outside voxel.  Operations: FLOPS_INSIDE at
+    each voxel a launch samples, FLOPS_OUTSIDE at its others.  Returns
+    (ms, 'bytes' or 'operations', voxels sampled, source voxels read)."""
+    from voltools_tpu_torch.ops.interpolation import _inside, _mirror_index
+    shards = len(matrices)
+    h, w = true_shape[1:]
+    first, taps = (0, 2) if order == 1 else (-1, 4)
+    vox = local * h * w
+    words = ops = sampled = read_total = 0
+    for m in matrices:
+        c = vt.ops.affine_coords((local, h, w), m, device=device)
+        inside = _inside(c[0], c[1], c[2], true_shape, mode)
+        axes = []   # per axis, per tap: (index, in range or None)
+        for a, n in enumerate(true_shape):
+            base = torch.floor(c[a]).to(torch.int64) + first
+            axes.append([])
+            for t in range(taps):
+                i = base + t
+                if mode == "border":
+                    axes[a].append((i.clamp(0, n - 1), (i >= 0) & (i < n)))
+                elif order == 3:
+                    axes[a].append((_mirror_index(i, n), None))
+                else:
+                    axes[a].append((i.clamp(0, n - 1), None))
+        del c, base, i
+        read = torch.zeros(shards * vox, dtype=torch.bool, device=device)
+        for z, okz in axes[0]:
+            for y, oky in axes[1]:
+                for x, okx in axes[2]:
+                    ok = inside
+                    for o in (okz, oky, okx):
+                        ok = ok if o is None else ok & o
+                    read[((z * h + y) * w + x)[ok]] = True
+        read_total += int(read.sum())
+        del read
+        for j in range(shards):
+            meets = torch.zeros_like(inside)
+            for z, okz in axes[0]:
+                own = (z >= j * local) & (z < (j + 1) * local)
+                meets |= own if okz is None else own & okz
+            n = int((meets & inside).sum())
+            sampled += n
+            words += 2 * n
+            ops += FLOPS_INSIDE[order] * n + FLOPS_OUTSIDE * (vox - n)
+        words += int((~inside).sum())
+        del axes, inside, meets
+    t_bytes = 4.0 * (words + read_total) / HBM_BYTES_PER_S
+    t_ops = ops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", sampled,
+            read_total)
+
+
+def queued_launch_ms(torch, fn, module, name):
+    """Device ms of the launches that one call of ``fn`` makes through
+    ``module.name``, each between CUDA events recorded just before and
+    just after it, the whole call queued behind a sleep kernel: the host's
+    work between launches falls into the sleep, not between a launch's
+    events.  Raises unless the host had queued the call before the sleep
+    ended.  Returns the list of per-launch ms."""
+    launch = getattr(module, name)
+    pairs = []
+
+    def timed(*args, **kwargs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = launch(*args, **kwargs)
+        ev[1].record()
+        pairs.append(ev)
+        return out
+
+    setattr(module, name, timed)
+    try:
+        sleep = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        sleep[0].record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        sleep[1].record()
+        t0 = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    finally:
+        setattr(module, name, launch)
+    sleep_ms = sleep[0].elapsed_time(sleep[1])
+    assert host_ms < sleep_ms, (name, host_ms, sleep_ms)
+    return [a.elapsed_time(b) for a, b in pairs]
+
+
+def profiler_view(torch, fn):
+    """What torch.profiler records of one call of ``fn``: its device
+    events by name, and the device events in the profiler's raw (kineto)
+    results, before they become function events, by name."""
+    from collections import Counter
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = Counter(e.name[:80] for e in prof.events()
+                     if e.device_type == cuda)
+    raw = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    raw = None if raw is None else Counter(
+        e.name()[:80] for e in raw.events() if e.device_type() == cuda)
+    return {"device_events": dict(events),
+            "raw_device_events": None if raw is None else dict(raw)}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -566,6 +714,7 @@ def main():
     from voltools_tpu_torch.kernels import affine_resample as K
     from voltools_tpu_torch.kernels import affine_slab as S
     from voltools_tpu_torch.kernels import backproject as BP
+    from voltools_tpu_torch.kernels import partial_sample as PS
     from voltools_tpu_torch.kernels import planner
     from voltools_tpu_torch.kernels.layout import pitched
     from voltools_tpu_torch.kernels.planner import (choose_plan, slab_plan,
@@ -583,6 +732,19 @@ def main():
     walk = K.affine_resample
     slab = S.affine_slab
     bproj = BP.backproject
+    d1 = PS.partial_sample
+    d2 = PS.partial_project
+    D1, D2 = "partial_sample", "partial_project"
+    ABC = (S.NAME, K.NAME, BP.NAME)
+
+    def zero_launches():
+        """Every kernel's launch counter set to 0."""
+        walk.launches = slab.launches = bproj.launches = 0
+        d1.launches = d2.launches = 0
+
+    def launch_counts():
+        return {S.NAME: slab.launches, K.NAME: walk.launches,
+                BP.NAME: bproj.launches, D1: d1.launches, D2: d2.launches}
 
     def row_gather_against_baseline(projs, minv, shape, reps):
         """C's row-gather call (the wrapper: its pitched copy and launch)
@@ -632,7 +794,8 @@ def main():
     def planned(launches, back_projections=0):
         """The planner's kernel for each resampling launch, given as
         (matrices, shape, order), and C's ``back_projections``."""
-        counts = {S.NAME: 0, K.NAME: 0, BP.NAME: back_projections}
+        counts = {S.NAME: 0, K.NAME: 0, BP.NAME: back_projections, D1: 0,
+                  D2: 0}
         for ms, shape, order in launches:
             counts[S.NAME if routed(ms, shape, order) is not None
                    else K.NAME] += 1
@@ -657,7 +820,7 @@ def main():
 
     # --------------------------------------------------------- 2. build
     # one nvcc per source, all started together
-    kernel_modules = (K, S, BP)
+    kernel_modules = (K, S, BP, PS)
     defines = {BP.NAME: BP.LAYOUT}
     cached = {m.NAME: _build.library_path(
         m.NAME, defines.get(m.NAME)).is_file() for m in kernel_modules}
@@ -987,6 +1150,75 @@ def main():
          window_misses=bp_misses)
     del projs
 
+    # ------------------ 4c. D against its plain version, on 4 shards
+    from voltools_tpu_torch.parallel import Mesh, ShardedVolume
+    mesh = Mesh([dev] * SHARDS)
+    rng = np.random.default_rng(5)
+    ps_rows = []
+    for shape in (big, odd):
+        vol = rng.random(shape, dtype=np.float32)
+        ms = matrix_set(np, transform_matrix, shape, seed=shape[0])[:2]
+        ms = np.concatenate([ms, near_edge_set(
+            np, transform_matrix, translation_matrix, shape)[2:4]])
+        for interp, (mode, cval) in ((i, mc) for i in ("linear", "bspline")
+                                     for mc in (("constant", 0.0),
+                                                ("border", 1.5))):
+            sv = ShardedVolume(vol, interp, mesh=mesh, mode=mode, cval=cval)
+            for name, m in zip(("random_0", "random_1", "half_voxel_shift",
+                                "scale_past_the_edges"), ms):
+                before = d1.launches
+                got = sv._stream_body(m)
+                assert d1.launches - before == SHARDS * SHARDS
+                want = sv._stream_body(m, plain=True)
+                err = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+                assert all(torch.equal(g, w) for g, w in zip(got, want)), (
+                    shape, interp, mode, name, err)
+                assert all(torch.isfinite(g).all() for g in got)
+                ps_rows.append({"shape": list(shape), "local": sv._local,
+                                "pad": sv._pad, "order": spline_order(interp),
+                                "mode": mode, "cval": cval, "matrix": name,
+                                "max_abs_err": err})
+            del sv, got, want
+    d1_worst = max(r["max_abs_err"] for r in ps_rows)
+    pp_rows = []
+    pp_cases = [("recon_series_axis0", big, 0, recon_series),
+                ("random_axis1", big, 1,
+                 matrix_set(np, transform_matrix, big, seed=11)),
+                ("random_axis2", big, 2,
+                 matrix_set(np, transform_matrix, big, seed=12)),
+                ("odd_shape_axis0", odd, 0, odd_series)]
+    for name, shape, axis, ms in pp_cases:
+        local = -(-shape[0] // SHARDS)
+        vol = torch.zeros((local * SHARDS,) + shape[1:], device=dev)
+        vol[:shape[0]] = torch.from_numpy(
+            rng.standard_normal(shape, dtype=np.float32)).to(dev)
+        for i in range(SHARDS):
+            x = vol[i * local:(i + 1) * local]
+            off = float(np.float32(i * local))
+            before = d2.launches
+            got = d2(x, ms, off, shape, axis)
+            assert d2.launches - before == 1
+            want = PS.plain_partial_project(x, ms, off, shape, axis)
+            largest = float(PS.plain_partial_project(x.abs(), ms, off, shape,
+                                                     axis).max())
+            err = float((got - want).abs().max())
+            atol = PS.sum_order_atol(shape[axis], largest)
+            assert torch.isfinite(got).all() and err <= atol, (name, i, err,
+                                                               atol)
+            pp_rows.append({"case": name, "shape": list(shape),
+                            "projection_axis": axis, "tilts": len(ms),
+                            "shard": i, "max_abs_err": err, "atol": atol,
+                            "equal_to_plain": bool(torch.equal(got, want))})
+        del vol, x, got, want
+    d2_worst = max(r["max_abs_err"] for r in pp_rows)
+    emit("parity_partial_sample", kernels=[D1, D2], shards=SHARDS,
+         d1_cases=ps_rows, d1_equal_to_plain=True, d1_max_abs_err=d1_worst,
+         d2_cases=pp_rows, d2_max_abs_err=d2_worst,
+         d2_tolerance="2 (n_p - 1) 2**-24 x the largest plain partial "
+         "projection of the slab's magnitudes: two orders of a float32 sum "
+         "of the same n_p per-plane samples")
+
     # ---------------------------------------------------- 5. main path
     rng = np.random.default_rng(0)   # bench.py's volume and rotation stream
     vol_np = rng.random(big, dtype=np.float64).astype(np.float32)
@@ -1005,7 +1237,7 @@ def main():
     expected = planned([(m, big, order) for m, order in zip(calls, orders)])
 
     torch.cuda.synchronize()
-    walk.launches = slab.launches = bproj.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     sv_lin = vt.StaticVolume(vol_np, "linear", device="cuda")
     lin = [sv_lin.affine(m, output="device") for m in rots]
@@ -1020,8 +1252,7 @@ def main():
                         device="cuda", output="device")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    main_launches = {S.NAME: slab.launches, K.NAME: walk.launches,
-                     BP.NAME: bproj.launches}
+    main_launches = launch_counts()
     assert main_launches == expected, (main_launches, expected)
     assert sum(main_launches.values()) == len(calls), main_launches
     assert vt.last_dispatch()["impl"] == "cuda"
@@ -1082,7 +1313,7 @@ def main():
         back_projections=1 + 1 + SIRT_ITERATIONS)
 
     torch.cuda.synchronize()
-    walk.launches = slab.launches = bproj.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     proj = {}
     projs = {}
@@ -1101,12 +1332,11 @@ def main():
                             device="cuda", output="device")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    tilt_launches = {S.NAME: slab.launches, K.NAME: walk.launches,
-                     BP.NAME: bproj.launches}
+    tilt_launches = launch_counts()
     assert tilt_launches == expected_tilt, (tilt_launches, expected_tilt)
     # every kernel runs on one of the two paths at least
     assert all(main_launches[k] + tilt_launches[k] > 0
-               for k in main_launches), (main_launches, tilt_launches)
+               for k in ABC), (main_launches, tilt_launches)
 
     proj_err = {}
     plain_projs = {}
@@ -1603,7 +1833,7 @@ def main():
                  interpolation=interp, device="cuda")
 
     torch.cuda.synchronize()
-    walk.launches = slab.launches = bproj.launches = 0
+    zero_launches()
     results, register_ms = {}, {}
     for interp in interps:
         register_ms[interp], results[interp] = event_ms(
@@ -1615,8 +1845,7 @@ def main():
         mov_dev, interpolation=interp, device="cuda", output="device")
         for interp in interps}
     torch.cuda.synchronize()
-    reg_launches = {S.NAME: slab.launches, K.NAME: walk.launches,
-                    BP.NAME: bproj.launches}
+    reg_launches = launch_counts()
     expected_reg = planned([(results[interp].matrix, rshape,
                              spline_order(interp)) for interp in interps])
     assert reg_launches == expected_reg, (reg_launches, expected_reg)
@@ -1825,19 +2054,20 @@ def main():
             n[S.NAME if r.plan is not None else K.NAME] += 1
         return n
 
-    shard_launches = {S.NAME: 0, K.NAME: 0, BP.NAME: 0}
+    shard_launches = dict.fromkeys(launch_counts(), 0)
 
-    def launched(fn, routes, backprojections=0):
+    def launched(fn, routes, backprojections=0, d1_launches=0,
+                 d2_launches=0):
         """Run ``fn`` with the counters set to 0 just before; the counts
-        just after must be what ``routes`` give, and C's
-        ``backprojections``; add them to the phase's."""
+        just after must be what ``routes`` give, C's ``backprojections``
+        and D1's and D2's launches; add them to the phase's."""
         torch.cuda.synchronize()
-        walk.launches = slab.launches = bproj.launches = 0
+        zero_launches()
         result = fn()
         torch.cuda.synchronize()
-        got = {S.NAME: slab.launches, K.NAME: walk.launches,
-               BP.NAME: bproj.launches}
-        want = dict(counted(routes), **{BP.NAME: backprojections})
+        got = launch_counts()
+        want = dict(counted(routes), **{BP.NAME: backprojections,
+                                        D1: d1_launches, D2: d2_launches})
         assert got == want, (got, want)
         for k in got:
             shard_launches[k] += got[k]
@@ -1874,7 +2104,10 @@ def main():
         for strategy, mname, m in cases:
             sv = svs[name, strategy]
             body, routes = shard_routes(sv, m)
-            slabs = launched(lambda: sv.affine(m, output="device"), routes)
+            # the stream body: D1 once per shard and slab, A and B never
+            slabs = launched(lambda: sv.affine(m, output="device"), routes,
+                             d1_launches=SHARDS * SHARDS
+                             if body == "stream" else 0)
             assert len(slabs) == SHARDS and all(
                 x.device == dev for x in slabs), [x.device for x in slabs]
             got = torch.cat(slabs)
@@ -1996,11 +2229,13 @@ def main():
         assert err <= RECON_RTOL, (mesh_shard, err)
         recon_rows[f"wbp_{mesh_shard}"] = err
     sirt_ms = {}
+    # C and D2 once per shard for the normalisers and for each iteration
     sirt_ms[SHARD_SIRT_ITERATIONS], res = event_ms(torch, lambda: launched(
         lambda: sirt_reconstruct(rprojs, rms, big,
                                  iterations=SHARD_SIRT_ITERATIONS,
                                  mesh=mesh, output="device"), [],
-        SHARDS * (1 + SHARD_SIRT_ITERATIONS)))
+        SHARDS * (1 + SHARD_SIRT_ITERATIONS),
+        d2_launches=SHARDS * (1 + SHARD_SIRT_ITERATIONS)))
     sirt_one = sirt_reconstruct(rprojs, rms, big,
                                 iterations=SHARD_SIRT_ITERATIONS,
                                 device="cuda", output="device",
@@ -2077,11 +2312,10 @@ def main():
         rprojs, rms, big, device="cuda", output="device"), reps=2, warmup=1)
     sirt_ms[1], res = event_ms(torch, lambda: sirt_reconstruct(
         rprojs, rms, big, iterations=1, mesh=mesh, output="device"))
-    # the mesh SIRT with C's plain version, bit for bit, one iteration (its
-    # plain torch forward takes seconds)
+    # the mesh SIRT with C's plain version, bit for bit, one iteration
     plain = launched(lambda: sirt_reconstruct(
         rprojs, rms, big, iterations=1, mesh=mesh, output="device",
-        _plain_adjoint=True), [])
+        _plain_adjoint=True), [], d2_launches=SHARDS * 2)
     recon_equal["sirt_1_iteration"] = bool(torch.equal(torch.cat(res),
                                                        torch.cat(plain)))
     assert recon_equal["sirt_1_iteration"], "mesh SIRT: C != plain version"
@@ -2095,6 +2329,127 @@ def main():
         output="device"))[0] for n in (1, SHARD_SIRT_ITERATIONS)]
     st["sirt_single_ms_per_iteration"] = (one[1] - one[0]) / (
         SHARD_SIRT_ITERATIONS - 1)
+    # the mesh SIRT with D2's plain version as its forward, timed once at
+    # one iteration and at two
+    plain_sirt = [event_ms(torch, lambda n=n: sirt_reconstruct(
+        rprojs, rms, big, iterations=n, mesh=mesh, output="device",
+        _plain_forward=True))[0] for n in (1, 2)]
+    st["sirt_mesh_plain_forward_ms_per_iteration"] = (plain_sirt[1]
+                                                      - plain_sirt[0])
+
+    # D1 in the stream body itself, its 16 launches a rotation on 4 shards:
+    # the body's time, the device time of its launches alone, what the
+    # profiler records of it, and its plain steps (plain=True) timed once
+    from torch.nn.functional import grid_sample
+    local = -(-SIZE // SHARDS)
+    shifted = [_shifted(rots[0], np.float32(i * local))
+               for i in range(SHARDS)]
+    d_times = {}
+    for name, order_name in (("linear", "linear"), ("filt_bspline", "cubic")):
+        sv = svs[name, "stream"]
+        body = functools.partial(sv._stream_body, rots[0])
+        d_times[f"d1_{order_name}_body_ms"] = time_ms(torch, body, reps=10)
+        kernel = [queued_launch_ms(torch, body, sharded_module,
+                                   "partial_sample") for _ in range(5)]
+        assert all(len(k) == SHARDS * SHARDS for k in kernel), kernel
+        sums = sorted(sum(k) for k in kernel)
+        d_times[f"d1_{order_name}_kernel_ms"] = sums[len(sums) // 2]
+        d_times[f"d1_{order_name}_kernel_ms_range"] = [sums[0], sums[-1]]
+        d_times[f"d1_{order_name}_launch_ms"] = kernel[0]
+        d_times[f"d1_{order_name}_profiler"] = profiler_view(torch, body)
+        d_times[f"d1_{order_name}_plain_ms"] = event_ms(
+            torch, lambda: sv._stream_body(rots[0], plain=True))[0]
+        (d_times[f"d1_{order_name}_bound_ms"],
+         d_times[f"d1_{order_name}_bound_by"],
+         d_times[f"d1_{order_name}_voxels_sampled"],
+         d_times[f"d1_{order_name}_source_voxels_read"]) = d1_bound_ms(
+            torch, vt, shifted, big, local, spline_order(sv.interpolation),
+            sv.mode, dev)
+    # grid_sample, trilinear with zero padding, on each slab at the shard's
+    # coordinates: the 16 calls of a rotation, timed only
+    sv = svs["linear", "stream"]
+    grids = []
+    for i in range(SHARDS):
+        c = vt.ops.affine_coords((local,) + big[1:], shifted[i], device=dev)
+        for j in range(SHARDS):
+            grids.append((j, torch.stack(
+                [c[2] * (2.0 / (big[2] - 1)) - 1.0,
+                 c[1] * (2.0 / (big[1] - 1)) - 1.0,
+                 (c[0] - j * local) * (2.0 / (local - 1)) - 1.0], -1)[None]))
+        del c
+    d_times["d1_grid_sample_ms"] = time_ms(torch, lambda: [grid_sample(
+        sv.data[j][None, None], g, mode="bilinear", padding_mode="zeros",
+        align_corners=True) for j, g in grids], reps=5)
+    del grids
+
+    # D2: a sweep over the reconstruction's 41 tilts, one launch a shard
+    xs_full = torch.zeros((local * SHARDS,) + big[1:], device=dev)
+    xs_full[:SIZE] = vol_dev
+    xs = [xs_full[i * local:(i + 1) * local] for i in range(SHARDS)]
+    offs = [float(np.float32(i * local)) for i in range(SHARDS)]
+
+    # the sweep calls D2 through a namespace of its own, which
+    # queued_launch_ms patches: the wrapper's own module global is the
+    # launch counter's holder and stays as it is
+    d2_call = types.SimpleNamespace(partial_project=PS.partial_project)
+
+    def sweep():
+        return [d2_call.partial_project(xs[i], rms, offs[i], big, 0)
+                for i in range(SHARDS)]
+
+    d_times["d2_sweep_ms"] = time_ms(torch, sweep, reps=10)
+    kernel = [queued_launch_ms(torch, sweep, d2_call, "partial_project")
+              for _ in range(5)]
+    assert all(len(k) == SHARDS for k in kernel), kernel
+    sums = sorted(sum(k) for k in kernel)
+    d_times["d2_kernel_ms"] = sums[len(sums) // 2]
+    d_times["d2_kernel_ms_range"] = [sums[0], sums[-1]]
+    d_times["d2_launch_ms"] = kernel[0]
+    d_times["d2_profiler"] = profiler_view(torch, sweep)
+    d_times["d2_plain_ms"] = event_ms(torch, lambda: [
+        PS.plain_partial_project(xs[i], rms, offs[i], big, 0)
+        for i in range(SHARDS)])[0]
+    # its bound: the slabs read and the projections written once over the
+    # memory rate, against the samples whose stencil meets a slab (inside,
+    # floor(z - off) in [-1, local - 1]) at FLOPS_INSIDE linear and one add
+    # each over the fp32 rate
+    from voltools_tpu_torch.ops.interpolation import _inside
+    samples = 0
+    library_ms = 0.0
+    for m in rms:
+        c = vt.ops.affine_coords(big, m, device=dev)
+        inside = _inside(c[0], c[1], c[2], big, "constant")
+        for i in range(SHARDS):
+            f = torch.floor(c[0] - offs[i])
+            samples += int((inside & (f >= -1) & (f <= local - 1)).sum())
+        del c, inside
+    tb = 4.0 * SHARDS * (local * SIZE * SIZE + len(rms) * SIZE * SIZE) \
+        / HBM_BYTES_PER_S
+    to = (FLOPS_INSIDE[1] + 1) * samples / FP32_FLOPS
+    d_times["d2_bound_ms"] = max(tb, to) * 1e3
+    d_times["d2_bound_by"] = "bytes" if tb >= to else "operations"
+    d_times["d2_samples"] = samples
+    # grid_sample, trilinear with zero padding, of each slab at every
+    # voxel of each tilt, then summed over the projection axis: timed
+    # only, a shard at a time (41 grids of 250^3 points)
+    for i in range(SHARDS):
+        grids = []
+        for m in rms:
+            c = vt.ops.affine_coords(big, m, device=dev)
+            grids.append(torch.stack(
+                [c[2] * (2.0 / (SIZE - 1)) - 1.0,
+                 c[1] * (2.0 / (SIZE - 1)) - 1.0,
+                 (c[0] - offs[i]) * (2.0 / (local - 1)) - 1.0], -1)[None])
+            del c
+        library_ms += time_ms(torch, lambda: [grid_sample(
+            xs[i][None, None], g, mode="bilinear", padding_mode="zeros",
+            align_corners=True).sum(dim=2) for g in grids], reps=2,
+            warmup=1)
+        del grids
+    d_times["d2_grid_sample_sum_ms"] = library_ms
+    del xs, xs_full
+    st.update(d_times)
+
     emit("sharded", shape=list(big), shards=SHARDS,
          mesh=[str(d) for d in mesh.devices], local_planes=-(-SIZE // SHARDS),
          launches=shard_launches, check_seconds=check_seconds,
@@ -2131,20 +2486,19 @@ def main():
         module = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(module)
         torch.cuda.synchronize()
-        walk.launches = slab.launches = bproj.launches = 0
+        zero_launches()
         printed = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(printed):
             result = module.main(device="cuda", figure=None)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {S.NAME: slab.launches, K.NAME: walk.launches,
-                    BP.NAME: bproj.launches}
+        launches = launch_counts()
         result["printed"] = printed.getvalue().splitlines()
         return module, result, launches, seconds
 
     example_rows = {}
-    example_launches = {S.NAME: 0, K.NAME: 0, BP.NAME: 0}
+    example_launches = dict.fromkeys(launch_counts(), 0)
 
     def record(name, launches, expected, seconds, **fields):
         assert launches == expected, (name, launches, expected)
@@ -2302,7 +2656,7 @@ def main():
            printed=res["printed"])
     del res
     # every kernel runs in one example at least
-    assert all(v > 0 for v in example_launches.values()), example_launches
+    assert all(example_launches[k] > 0 for k in ABC), example_launches
     emit("examples", launches=example_launches, examples=example_rows,
          method="each example's main(device='cuda', figure=None) at its "
          "own size; it runs its pipeline twice and times the second pass "
@@ -2408,6 +2762,45 @@ def main():
                      "wbp_ms": t["tomogram_wbp_ms"],
                      "wbp_plain_adjoint_ms":
                          t["tomogram_wbp_plain_adjoint_ms"]},
+    }]
+
+    def by_path(name):
+        return {"main": main_launches[name], "tilt": tilt_launches[name],
+                "registration": reg_launches[name],
+                "sharded": shard_launches[name],
+                "examples": example_launches[name]}
+    kernels += [{
+        "name": D1, "route": "cuda", "source": PS.SOURCE,
+        "replaces": PS.REPLACES[D1], "launches": main_tilt[D1],
+        "launches_by_path": by_path(D1), "max_abs_err": d1_worst,
+        "ms": st["d1_linear_kernel_ms"], "plain_ms": st["d1_linear_plain_ms"],
+        "bound_ms": st["d1_linear_bound_ms"],
+        "bound_by": st["d1_linear_bound_by"],
+        "library_ms": st["d1_grid_sample_ms"],
+        "shape": list(big), "matrices": "one random rotation through the "
+        "stream body on 4 shards, linear: the device time of its 16 "
+        "launches (events around each, the call queued behind a sleep "
+        "kernel); body_ms the stream body's call; the plain version the "
+        "stream body with plain=True",
+        "equal_to_plain": True, "body_ms": st["d1_linear_body_ms"],
+        "cubic": {"ms": st["d1_cubic_kernel_ms"],
+                  "plain_ms": st["d1_cubic_plain_ms"],
+                  "bound_ms": st["d1_cubic_bound_ms"],
+                  "bound_by": st["d1_cubic_bound_by"], "library_ms": None,
+                  "body_ms": st["d1_cubic_body_ms"]},
+    }, {
+        "name": D2, "route": "cuda", "source": PS.SOURCE,
+        "replaces": PS.REPLACES[D2], "launches": main_tilt[D2],
+        "launches_by_path": by_path(D2), "max_abs_err": d2_worst,
+        "ms": st["d2_kernel_ms"], "plain_ms": st["d2_plain_ms"],
+        "bound_ms": st["d2_bound_ms"], "bound_by": st["d2_bound_by"],
+        "library_ms": st["d2_grid_sample_sum_ms"],
+        "shape": list(big), "matrices": "the reconstruction's 41-tilt "
+        "series, projection axis 0: one sweep, a launch for each of 4 "
+        "shards, the device time of the 4 launches (events around each, "
+        "the sweep queued behind a sleep kernel); sweep_ms the sweep's "
+        "call", "sweep_ms": st["d2_sweep_ms"],
+        "tolerance": "sum_order_atol: two orders of a float32 sum",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,10 @@ from voltools_tpu_torch.kernels.backproject import (backproject,
                                                     plain_backproject,
                                                     row_gather)
 from voltools_tpu_torch.kernels.layout import pitched, tma_ready
+from voltools_tpu_torch.kernels.partial_sample import (partial_project,
+                                                       partial_sample,
+                                                       plain_partial_project,
+                                                       sum_order_atol)
 from voltools_tpu_torch.kernels.planner import (BRICK, SMEM_BUDGET, SlabPlan,
                                                 slab_extents, slab_plan)
 from voltools_tpu_torch.models import (TiltSeriesProjector,
@@ -529,7 +533,8 @@ def test_sharded_volume_on_a_4_shard_mesh(dev, shape, interpolation, mode):
     """The halo, gather and stream bodies on a 4-shard mesh on one card,
     held against StaticVolume on the same card (atol 3e-5, 5e-4 off knife
     edges for the global bodies); 38 planes pad to 40.  The halo and
-    gather bodies launch a kernel per shard, the stream body none."""
+    gather bodies launch A or B once per shard; the stream body launches
+    neither, and D1 once per shard and slab: 4 x 4 times."""
     from voltools_tpu_torch.parallel import ShardedVolume
     vol = np.random.default_rng(sum(shape)).random(shape).astype(np.float32)
     center = tuple(s / 2 for s in shape)
@@ -544,11 +549,14 @@ def test_sharded_volume_on_a_4_shard_mesh(dev, shape, interpolation, mode):
                            cval=1.5, global_strategy=strategy)
         for m, atol in ((local_m, 3e-5), (global_m, 5e-4)):
             before = affine_resample.launches + affine_slab.launches
+            before_d1 = partial_sample.launches
             slabs = sv.affine(m, output="device")
             launched = affine_resample.launches + affine_slab.launches \
                 - before
             global_stream = m is global_m and strategy == "stream"
             assert launched == (0 if global_stream else 4)
+            assert partial_sample.launches - before_d1 == (
+                16 if global_stream else 0)
             assert all(s.device == dev for s in slabs)
             got = torch.cat(slabs)
             want = single.affine(m, output="device")
@@ -593,10 +601,76 @@ def test_sharded_batch_and_reconstructions_on_a_4_shard_mesh(dev):
         res = wbp_reconstruct(p, ms, shape, mesh=mesh, mesh_shard=mesh_shard)
         one = wbp_reconstruct(p, ms, shape, device="cuda")
         assert np.abs(res - one).max() <= 1e-4 * np.abs(one).max()
+    before = partial_project.launches
     res = sirt_reconstruct(p, ms, shape, iterations=3, mesh=mesh)
+    # D2 once per shard for the row sums and for each iteration's forward
+    assert partial_project.launches - before == 4 * (1 + 3)
     one = sirt_reconstruct(p, ms, shape, iterations=3, device="cuda",
                            _plain_forward=True)
     assert np.abs(res - one).max() <= 1e-4 * np.abs(one).max()
+    plain = sirt_reconstruct(p, ms, shape, iterations=3, mesh=mesh,
+                             _plain_forward=True)
+    assert np.abs(res - plain).max() <= 1e-4 * np.abs(plain).max()
+
+
+@pytest.mark.parametrize("shape", [(40, 24, 28), (37, 20, 33)])
+@pytest.mark.parametrize("mode,cval", [("constant", 0.0), ("border", 1.5)])
+@pytest.mark.parametrize("interpolation", ["linear", "filt_bspline"])
+def test_stream_body_equals_its_plain_version(dev, shape, mode, cval,
+                                              interpolation):
+    """The stream body on a 4-shard mesh through D1 equals its plain
+    version on the card bit for bit (37 planes pad to 40), for a full 3-D
+    rotation, a half-voxel shift along z (every stencil straddles two
+    planes, slab boundaries included) and a scale whose taps pass every
+    edge."""
+    from voltools_tpu_torch.parallel import ShardedVolume
+    vol = np.random.default_rng(shape[0]).random(shape).astype(np.float32)
+    center = tuple(s / 2 for s in shape)
+    sv = ShardedVolume(vol, interpolation, mesh=_mesh4(dev), mode=mode,
+                       cval=cval)
+    for m in (transform_matrix(rotation=(111, -67, 148),
+                               rotation_order="sxyz", center=center),
+              translation_matrix((0.5, 0.25, -0.5)),
+              transform_matrix(scale=(1.2, 0.85, 1.1), center=center)):
+        m = np.asarray(m, np.float32)
+        before = partial_sample.launches
+        got = sv._stream_body(m)
+        assert partial_sample.launches - before == 16
+        want = sv._stream_body(m, plain=True)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), float((g - w).abs().max())
+
+
+@pytest.mark.parametrize("shape", [(40, 36, 32), (37, 50, 61)])
+@pytest.mark.parametrize("projection_axis", [0, 1, 2])
+def test_partial_project_within_the_sum_order_bound(dev, shape,
+                                                    projection_axis):
+    """D2 against plain_partial_project on the card, per slab of a 4-shard
+    split, on signed values: one launch for all tilts, within
+    sum_order_atol of the plain projection of the slab's magnitudes (the
+    two sum the same per-plane samples in two orders)."""
+    rng = np.random.default_rng(sum(shape))
+    center = tuple((s - 1) / 2 for s in shape)
+    ms = np.stack([np.asarray(transform_matrix(
+        rotation=tuple(rng.uniform(-180, 180, 3)), rotation_order="sxyz",
+        center=center), np.float32) for _ in range(5)]
+        + [np.asarray(transform_matrix(rotation=(a, 0, 0),
+                                       rotation_order="rzxz", center=center),
+                      np.float32) for a in (-60, 0, 45)])
+    local = -(-shape[0] // 4)
+    vol = np.zeros((4 * local,) + shape[1:], np.float32)
+    vol[:shape[0]] = rng.standard_normal(shape)
+    for i in range(4):
+        x = torch.from_numpy(vol[i * local:(i + 1) * local].copy()).to(dev)
+        off = float(np.float32(i * local))
+        before = partial_project.launches
+        got = partial_project(x, ms, off, shape, projection_axis)
+        assert partial_project.launches - before == 1
+        want = plain_partial_project(x, ms, off, shape, projection_axis)
+        largest = float(plain_partial_project(x.abs(), ms, off, shape,
+                                              projection_axis).max())
+        err = float((got - want).abs().max())
+        assert err <= sum_order_atol(shape[projection_axis], largest), err
 
 
 def _rotation_about(shape, axis, degrees):

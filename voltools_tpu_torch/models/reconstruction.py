@@ -21,8 +21,9 @@ shards, as the JAX package's mesh modes do under ``shard_map``:
 per shard and sums the partial volumes; ``mesh_shard='volume'`` and
 ``sirt_reconstruct(mesh=)`` give each shard a z slab of the volume.  The
 volume-sharded SIRT forward sums per-slab partial projections (per-tap zero
-extension, :func:`_trilinear3d_pertap`), plain torch over chunks of planes,
-where the JAX package leaves it to XLA.
+extension), one launch of the kernel D2 a shard on the card
+(:func:`~..kernels.partial_sample.partial_project`), where the JAX package
+leaves it to XLA; its plain version over chunks of planes on the CPU.
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ import torch
 
 from ..kernels.backproject import backproject, plain_backproject, row_gather
 from ..kernels.layout import pitched, pitched_empty
+from ..kernels.partial_sample import (  # noqa: F401 (re-exported)
+    _trilinear3d_pertap, partial_project, plain_partial_project)
 from ..parallel.sharded import _crop, _host, _psum, _ring_shift, _shifted
 from ..transforms import _as_tensor, _device, _finish
 from .projections import _norm_axis, plain_project_stack, project_stack
@@ -89,43 +92,6 @@ def _mesh_out(slabs, d0: int, output):
             f"output must be None, 'device', or a numpy array to fill, "
             f"got {output!r}")
     return _finish(_host(slabs), output)
-
-
-def _trilinear3d_pertap(vol, zz, yy, xx):
-    """Trilinear sample of a 3-D block at float coordinate tensors with
-    PER-TAP zero extension: each of the 8 taps contributes 0 outside the
-    block (``reconstruction.py:148-183``).  Unlike the scipy 'constant'
-    whole-sample mask this is linear in ``vol`` under zero extension: the
-    samples of disjoint z slabs sum to the sample of the whole volume,
-    which makes the volume-sharded SIRT forward exact (the caller applies
-    the whole-sample mask from global coordinates)."""
-    l, h, w = vol.shape
-    flat = vol.reshape(-1)
-    z0f = torch.floor(zz)
-    y0f = torch.floor(yy)
-    x0f = torch.floor(xx)
-    fz = zz - z0f
-    fy = yy - y0f
-    fx = xx - x0f
-    z0 = z0f.to(torch.int64)
-    y0 = y0f.to(torch.int64)
-    x0 = x0f.to(torch.int64)
-
-    def tap(zt, yt, xt, wgt):
-        valid = ((zt >= 0) & (zt < l) & (yt >= 0) & (yt < h)
-                 & (xt >= 0) & (xt < w))
-        v = torch.take(flat, (zt.clamp(0, l - 1) * h + yt.clamp(0, h - 1))
-                       * w + xt.clamp(0, w - 1))
-        return torch.where(valid, v, 0.0) * wgt
-
-    return (tap(z0, y0, x0, (1 - fz) * (1 - fy) * (1 - fx))
-            + tap(z0, y0, x0 + 1, (1 - fz) * (1 - fy) * fx)
-            + tap(z0, y0 + 1, x0, (1 - fz) * fy * (1 - fx))
-            + tap(z0, y0 + 1, x0 + 1, (1 - fz) * fy * fx)
-            + tap(z0 + 1, y0, x0, fz * (1 - fy) * (1 - fx))
-            + tap(z0 + 1, y0, x0 + 1, fz * (1 - fy) * fx)
-            + tap(z0 + 1, y0 + 1, x0, fz * fy * (1 - fx))
-            + tap(z0 + 1, y0 + 1, x0 + 1, fz * fy * fx))
 
 
 def _make_adjoint(minv, keep, out_shape, proj_shape,
@@ -301,9 +267,9 @@ def sirt_reconstruct(projections, matrices, out_shape,
     slabs in z order.
 
     ``_plain_forward`` runs the forward operator through the kernels' plain
-    version on the same device, ``_plain_adjoint`` the back-projection
-    through the kernel C's: the references the kernel path is held
-    against."""
+    version on the same device (with ``mesh``, the kernel D2's), and
+    ``_plain_adjoint`` the back-projection through the kernel C's: the
+    references the kernel path is held against."""
     if mesh is not None:
         device = str(mesh.devices[0])
     projs, matrices, out_shape, axis, keep, minv = _validate(
@@ -317,7 +283,7 @@ def sirt_reconstruct(projections, matrices, out_shape,
     if mesh is not None:
         return _sirt_mesh(projs, matrices, minv, out_shape, iterations,
                           relax, axis, nonneg, initial, mesh, output,
-                          _plain_adjoint)
+                          _plain_forward, _plain_adjoint)
     dev = projs.device
     sweep = plain_project_stack if _plain_forward else project_stack
 
@@ -344,69 +310,21 @@ def sirt_reconstruct(projections, matrices, out_shape,
     return _result_out(x.contiguous(), output)
 
 
-# output voxels of the volume-sharded forward's coordinates per chunk of
-# planes
-_FORWARD_CHUNK_VOXELS = 1 << 22
-
-
-def _forward_partial(x_slab, matrices, off: float, out_shape,
-                     projection_axis: int) -> torch.Tensor:
-    """This slab's contribution to the forward projections, (N, A, B): per
-    tilt, the sum over the projection axis of per-tap samples of the
-    zero-extended slab (its first plane at global z ``off``), masked by the
-    global scipy 'constant' inside test (``reconstruction.py:526-556``).
-    The JAX package loops over planes; here a tilt's planes go in chunks
-    of at most ``_FORWARD_CHUNK_VOXELS`` coordinates, and a chunk whose
-    source z range lies off the slab by more than a voxel is skipped: each
-    of its taps would count 0."""
-    keep = [a for a in range(3) if a != projection_axis]
-    n_a, n_b = out_shape[keep[0]], out_shape[keep[1]]
-    n_p = out_shape[projection_axis]
-    dev = x_slab.device
-    local = x_slab.shape[0]
-    chunk = max(1, _FORWARD_CHUNK_VOXELS // (n_a * n_b))
-    grids = {keep[0]: torch.arange(n_a, dtype=torch.float32,
-                                   device=dev).view(1, n_a, 1),
-             keep[1]: torch.arange(n_b, dtype=torch.float32,
-                                   device=dev).view(1, 1, n_b)}
-    planes = torch.arange(n_p, dtype=torch.float32, device=dev).view(
-        n_p, 1, 1)
-    result = torch.zeros((len(matrices), n_a, n_b), dtype=torch.float32,
-                         device=dev)
-    for n, m in enumerate(matrices):
-        rows = [[float(v) for v in m[r]] for r in range(3)]
-        for t0 in range(0, n_p, chunk):
-            t1 = min(t0 + chunk, n_p)
-            # the chunk's source z range, over the corners of its box
-            ends = [(t0, t1 - 1) if a == projection_axis
-                    else (0, out_shape[a] - 1) for a in range(3)]
-            z_lo = rows[0][3] + sum(min(c * e[0], c * e[1])
-                                    for c, e in zip(rows[0], ends))
-            z_hi = rows[0][3] + sum(max(c * e[0], c * e[1])
-                                    for c, e in zip(rows[0], ends))
-            if z_hi < off - 2 or z_lo > off + local + 1:
-                continue
-            w = dict(grids)
-            w[projection_axis] = planes[t0:t1]
-            s = [rows[r][0] * w[0] + rows[r][1] * w[1] + rows[r][2] * w[2]
-                 + rows[r][3] for r in range(3)]
-            inside = ((s[0] >= 0) & (s[0] <= out_shape[0] - 1)
-                      & (s[1] >= 0) & (s[1] <= out_shape[1] - 1)
-                      & (s[2] >= 0) & (s[2] <= out_shape[2] - 1))
-            val = _trilinear3d_pertap(x_slab, s[0] - off, s[1], s[2])
-            result[n] += torch.where(inside, val, 0.0).sum(dim=0)
-    return result
+# the volume-sharded forward's step before the kernel D took it, by its old
+# name: the plain version on the CPU, a launch of D2 on the card
+_forward_partial = partial_project
 
 
 def _sirt_mesh(projs, matrices, minv, out_shape, iterations, relax,
                projection_axis, nonneg, initial, mesh, output,
-               _plain_adjoint=False):
+               _plain_forward=False, _plain_adjoint=False):
     """Volume-sharded SIRT: a z slab of the volume per shard
     (``reconstruction.py:491-598``).  Exact, not approximate:
 
     * **Forward** ``A x``: a trilinear sample is linear in the volume under
       per-tap zero extension, so each shard projects its own slab
-      (:func:`_forward_partial`) and the partial projections are summed
+      (:func:`~..kernels.partial_sample.partial_project`, one launch of
+      D2) and the partial projections are summed
       over the shards (``psum``); a z tap across a slab boundary is split
       between its two owners with its exact weights.
     * **Adjoint** ``A^T r``: each shard back-projects the (replicated,
@@ -427,10 +345,12 @@ def _sirt_mesh(projs, matrices, minv, out_shape, iterations, relax,
     offs = [np.float32(i * local) for i in range(nd)]
     mvs = [_shifted(minv, off) for off in offs]
 
+    project = plain_partial_project if _plain_forward else partial_project
+
     def forward(xs):
         """{device: A x}, the partials summed over the shards."""
-        return _psum([_forward_partial(x, matrices, float(off), out_shape,
-                                       projection_axis)
+        return _psum([project(x, matrices, float(off), out_shape,
+                              projection_axis)
                       for x, off in zip(xs, offs)], devices)
 
     eps = 1e-6

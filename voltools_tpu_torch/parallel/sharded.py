@@ -29,8 +29,9 @@ could not (NCCL takes one rank per device).
   on any device), or gather the volume on each device first
   (``'gather'``).  The halo and gather bodies launch the planner's CUDA
   kernel per shard (:func:`..transforms._resample`), the plain version on
-  the CPU; the stream body is plain torch, as the JAX package leaves it to
-  XLA.
+  the CPU; the stream body launches the kernel D1 once per shard and slab
+  (:func:`..kernels.partial_sample.partial_sample`), where the JAX package
+  leaves the ring's samples to XLA.
 * :func:`sharded_affine_batch` -- N matrices applied data-parallel: the
   volume is replicated once per distinct device and each shard resamples
   its share of the matrices in one launch.
@@ -48,14 +49,14 @@ import numpy as np
 import torch
 
 from ..kernels.layout import pitched, pitched_empty
-from ..ops.interpolation import (AVAILABLE_INTERPOLATIONS, MODES, _inside,
-                                 _mirror_index, cubic_bspline_weights,
+from ..kernels.partial_sample import (partial_sample, plain_partial_step,
+                                      sample_frame)
+from ..ops.interpolation import (AVAILABLE_INTERPOLATIONS, MODES,
                                  needs_prefilter, spline_order)
 from ..ops.prefilter import (_FIR_HALF_WIDTH, POLE, bspline_prefilter,
                              prefilter_fir)
-from ..ops.sampling import affine_coords
-from ..transforms import (_as_tensor, _as_triple, _check_shape,
-                          _device_matrices, _finish, _resample)
+from ..transforms import (_as_tensor, _as_triple, _check_shape, _finish,
+                          _resample)
 from ..utils import resolve_device, rotation_matrix, transform_matrix
 
 
@@ -228,80 +229,6 @@ def _z_inside(m: np.ndarray, out_shape, d0: int, mode: str,
     if mode == "border":
         return (zsrc > -0.5) & (zsrc < d0 - 0.5)
     return (zsrc >= 0) & (zsrc <= d0 - 1)
-
-
-def _partial_sample_pertap(slab, coords, z0: int, true_shape,
-                           interpolation: str, mode: str) -> torch.Tensor:
-    """This z-slab's contribution to a whole-volume interpolation sample
-    (``sharded.py:119-205``).
-
-    ``slab`` holds source planes ``[z0, z0 + slab.shape[0])`` of a volume
-    whose TRUE extent is ``true_shape``; ``coords`` are GLOBAL fractional
-    source coordinates.  Tap indices resolve as the single-device sampler's
-    do (clip for linear 'constant', mirror for cubic 'constant', zero
-    outside for 'border'); each tap then counts only where its z index
-    lands in this slab: per-tap zero extension, under which the sample is
-    linear in the source over disjoint slabs, so the partials of all slabs
-    sum to the full sample.  The whole-sample inside/cval mask is the
-    caller's (it needs global coordinates only)."""
-    d0, d1, d2 = true_shape
-    loc = slab.shape[0]
-    flat = slab.reshape(-1)
-    sz, sy, sx = coords[0], coords[1], coords[2]
-    z0f, y0f, x0f = torch.floor(sz), torch.floor(sy), torch.floor(sx)
-    zb = z0f.to(torch.int64)
-    yb = y0f.to(torch.int64)
-    xb = x0f.to(torch.int64)
-    fz, fy, fx = sz - z0f, sy - y0f, sx - x0f
-    constant = mode == "constant"
-
-    def tap(zg, yg, xg, ok, w):
-        zl = zg - z0
-        own = (zl >= 0) & (zl < loc)
-        if ok is not None:
-            own = own & ok
-        lin = (zl.clamp(0, loc - 1) * d1 + yg.clamp(0, d1 - 1)) * d2 \
-            + xg.clamp(0, d2 - 1)
-        return torch.where(own, torch.take(flat, lin), 0.0) * w
-
-    out = torch.zeros_like(sz)
-    if spline_order(interpolation) == 1:
-        for dz in (0, 1):
-            wz = fz if dz else 1.0 - fz
-            for dy in (0, 1):
-                wy = fy if dy else 1.0 - fy
-                for dx in (0, 1):
-                    wx = fx if dx else 1.0 - fx
-                    z, y, x = zb + dz, yb + dy, xb + dx
-                    # single-device semantics: 'constant' taps clip (an
-                    # in-range point's +1 tap only clips with weight 0)
-                    ok = None if constant else (
-                        (z >= 0) & (z < d0) & (y >= 0) & (y < d1)
-                        & (x >= 0) & (x < d2))
-                    out = out + tap(z.clamp(0, d0 - 1), y, x, ok,
-                                    wz * wy * wx)
-        return out
-
-    wzs = cubic_bspline_weights(fz)
-    wys = cubic_bspline_weights(fy)
-    wxs = cubic_bspline_weights(fx)
-
-    def cidx(base, t, n):
-        idx = base + (t - 1)
-        if constant:   # scipy: taps mirror-reflect at the global edges
-            return _mirror_index(idx, n), None
-        return idx.clamp(0, n - 1), (idx >= 0) & (idx < n)
-
-    for dz in range(4):
-        z, okz = cidx(zb, dz, d0)
-        for dy in range(4):
-            y, oky = cidx(yb, dy, d1)
-            w_zy = wzs[dz] * wys[dy]
-            for dx in range(4):
-                x, okx = cidx(xb, dx, d2)
-                ok = None if constant else (okz & oky & okx)
-                out = out + tap(z, y, x, ok, w_zy * wxs[dx])
-    return out
 
 
 def _float32(data) -> torch.Tensor:
@@ -505,31 +432,39 @@ class ShardedVolume:
             outs.append(out)
         return outs
 
-    def _stream_body(self, matrix: np.ndarray):
+    def _stream_body(self, matrix: np.ndarray, plain: bool = False):
         """Global transform, gather-free (``sharded.py:408-450``): each
-        shard sums the per-tap partial samples of the source slabs as they
-        come round the ring, then applies the whole-sample mask in the
-        global frame.  Per shard: two slab buffers, the output slab and its
-        coordinates; never the full volume."""
+        shard adds the per-tap partial samples of the source slabs into its
+        output slab as they come round the ring, one step of
+        :func:`..kernels.partial_sample.partial_sample` a slab (a launch of
+        the kernel D1 on the card), the last step applying the whole-sample
+        mask in the global frame.  Per shard: the output slab and the slab
+        received; never the full volume.  On CPU shards, and with
+        ``plain`` on any device, the steps are the plain version, each
+        shard's coordinates and inside test formed once: the reference the
+        kernel is held against."""
         n, local, shape = self.mesh.size, self._local, self.shape
+        order = spline_order(self.interpolation)
+        out_shape = (local,) + shape[1:]
         outs = []
         for i, dev in enumerate(self.mesh.devices):
-            m_dev = _device_matrices(_shifted(matrix, np.float32(i * local)),
-                                     dev)
-            coords = affine_coords((local,) + shape[1:], m_dev)
-            acc = torch.zeros((local,) + shape[1:], dtype=torch.float32,
-                              device=dev)
+            m_dev = _shifted(matrix, np.float32(i * local))
+            acc = torch.zeros(out_shape, dtype=torch.float32, device=dev)
+            frame = (sample_frame(m_dev, out_shape, shape, self.mode, dev)
+                     if plain or acc.device.type == "cpu" else None)
             src, src_idx = self.data[i], i
             for k in range(n):
-                acc = acc + _partial_sample_pertap(
-                    src, coords, src_idx * local, shape, self.interpolation,
-                    self.mode)
+                z0, last = src_idx * local, k == n - 1
+                if frame is None:
+                    partial_sample(src, m_dev, z0, shape, order, self.mode,
+                                   acc, last, self.cval)
+                else:
+                    plain_partial_step(src, *frame, z0, shape, order,
+                                       self.mode, acc, last, self.cval)
                 if k < n - 1:
                     src_idx = (src_idx - 1) % n
                     src = _ring_shift(self.data[src_idx], dev)
-            inside = _inside(coords[0], coords[1], coords[2], shape,
-                             self.mode)
-            outs.append(acc.masked_fill_(~inside, self.cval))
+            outs.append(acc)
         return outs
 
     # -------------------------------------------------------------- API
