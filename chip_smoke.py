@@ -17,10 +17,13 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    ``csrc/backproject.cu`` (the reconstructions' back-projection, C: a
    tile's projection rows staged in shared memory by TMA) and
    ``csrc/partial_sample.cu`` (the sharded paths' per-slab partial sample,
-   D: D1 the stream body's step, D2 the mesh SIRT's forward), and
+   D: D1 the stream body's ring, in one launch a shard or a launch a
+   step, D2 the mesh SIRT's forward, on a line path for tilt series),
    ``tools/backproject_baseline.cu`` (C's row-gather path before its
-   redesign, timed beside it in phase 7), in parallel, each timed, with
-   registers and spills;
+   redesign, timed beside it in phase 7) and
+   ``tools/partial_sample_baseline.cu`` (D before its redesign, timed
+   beside it in phase 10), in parallel, each timed, with registers and
+   spills;
 3. parity -- A against its plain torch version on the card, bit for bit
    (``torch.equal``; and atol 5e-5 off knife edges, as before): order {1,
    3} x mode {constant, border} x cval {0, 1.5}, on 250^3, (40, 48, 56) and
@@ -55,18 +58,22 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    each row-gather case with its tile; no tap may fall outside its
    window (C's device count, ``window_misses``, must stay 0);
 4c. parity_partial_sample -- D1 against its plain version on the card,
-   bit for bit (``torch.equal``): the stream body's ring through D1 and
-   through its plain steps (``_stream_body(m, plain=True)``) on 4 shards
-   of a 250^3 volume (the last shard padded: 250 planes in 4 x 63) and
-   of (37, 50, 61) (4 x 10), order {1, 3} x mode {constant, border with
-   cval 1.5}, for two random rotations, a half-voxel shift (every stencil
-   straddles two planes, slab boundaries included) and a scale whose taps
-   pass the global edges, SHARDS x SHARDS launches a ring; D2 against
+   bit for bit (``torch.equal``): the stream body's ring through D1's
+   ring entry (SHARDS launches a ring, one a shard) and through its plain
+   steps (``_stream_body(m, plain=True)``), and D1's per-step entry called
+   directly, chained over each shard's ring (SHARDS x SHARDS launches), on
+   4 shards of a 250^3 volume (the last shard padded: 250 planes in 4 x
+   63) and of (37, 50, 61) (4 x 10), order {1, 3} x mode {constant,
+   border with cval 1.5}, for two random rotations, a half-voxel shift
+   (every stencil straddles two planes, slab boundaries included) and a
+   scale whose taps pass the global edges; D2 against
    ``plain_partial_project`` per shard (one launch each), within the
    order of a float32 sum, 2 (n_p - 1) 2**-24 of the plain projection of
    the slab's magnitudes (``sum_order_atol``): the reconstruction's
-   41-tilt series along projection axis 0 at 250^3, random rotations
-   along axes 1 and 2, the odd shape's series;
+   41-tilt series along projection axis 0 at 250^3 and the odd shape's
+   series (both on the line path, each also against the general kernel,
+   ``_force_general=True``, bit for bit), random rotations along axes 1
+   and 2 (the general kernel);
 5. main   -- the main path at 250^3 float32, through the public API:
    ``StaticVolume`` 'linear' and 'filt_bspline' on 'cuda', ``.affine`` over
    16 random rotations and ``.affine_batch`` of the same 16, and the
@@ -146,9 +153,10 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    ``last_dispatch()``; ``wbp_reconstruct(mesh=)`` in both modes and
    ``sirt_reconstruct(mesh=)``.  The counters are set to 0 before each
    call and must then read what ``planner.route`` gives per shard, D1's
-   shards x shards launches for a rotation through the stream body (and
-   none of A or B), C's one launch per shard for each mesh WBP and C's
-   and D2's shards x (1 + iterations) for the mesh SIRT; each result is
+   shards launches for a rotation through the stream body, all on its
+   ring entry (and none of A or B), C's one launch per shard for each
+   mesh WBP and C's and D2's shards x (1 + iterations) for the mesh SIRT,
+   every D2 launch on the line path; each result is
    held against the single-device call and the plain version (SHARD_ATOL,
    SHARD_STREAM_ATOL, RECON_RTOL), the mesh reconstructions bit for bit
    against C's plain version (``_plain_adjoint=True``; the mesh SIRT at
@@ -157,13 +165,21 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    (``_plain_forward=True``), timed once, the device operations of one
    call, and the peak memory of one rotation through 'stream' and
    'gather'; D1 in the stream body's call (the call, and the device time
-   of its 16 launches alone: events around each launch, the call queued
-   behind a sleep kernel) and D2's 4 launches of a sweep (the same two
-   times), beside their bounds (D1's from the source voxels each shard's
-   taps read), their plain versions, what torch.profiler records of the
-   same calls and ``grid_sample`` (timed only: D1 linear trilinear with
-   zero padding on each slab at the shard's coordinates; D2 per tilt on
-   each slab, then summed over the projection axis);
+   of its 4 ring launches alone: events around each launch, the call
+   queued behind a sleep kernel), the 16 launches of its per-step entry
+   and of ``tools/partial_sample_baseline.cu`` over the same rings, and
+   D2's 4 launches of a sweep on the line path, on the general kernel and
+   on the baseline (the same two times for the call), in turns, beside
+   their bounds (D1's function -- each source voxel a shard's taps read
+   once, the output written once, each inside voxel sampled once -- and
+   its per-step design's, which reads and writes the accumulator at each
+   step; D2's general sample and the line geometry's bilinear one), the
+   floors of a design that keeps bit parity (no contraction: each rounded
+   operation of the plain order an instruction, at half the fp32 rate),
+   their plain versions, what torch.profiler records of the same calls
+   and ``grid_sample`` (timed only: D1 linear trilinear with zero padding
+   on each slab at the shard's coordinates; D2 per tilt on each slab,
+   then summed over the projection axis);
 11. examples -- the port's four examples, ``examples/torch_*.py``, each
    ``main(device='cuda', figure=None)`` at its JAX counterpart's size:
    the transform at 64^3 (mirror prefilter, then A), the three projection
@@ -284,6 +300,23 @@ TOMO_SHAPE = (256, 512, 512)       # a tomogram cryo-ET users reconstruct
 LARGE_SPAN_SCALE = 30.0
 # C's row-gather path before its redesign, timed beside it (phase 7)
 BASELINE_SOURCE = "tools/backproject_baseline.cu"
+# D before its redesign, timed beside it (phase 10)
+D_BASELINE_SOURCE = "tools/partial_sample_baseline.cu"
+# kernel D's least work.  D1 a sampled voxel: FLOPS_INSIDE, once; D2's
+# line geometry a sample: its 4 taps, each an FMA into the ray's sum with
+# the line's weight (8), and a (tilt, line, plane): its two coordinates
+# (3 FMAs each, 12), two fractions and their complements (4) and the 4
+# weights w_z w_q (4), shared by the line's rays.  The floors of a design
+# that keeps bit parity count the plain order's rounded operations, each
+# an instruction at half the fp32 rate (which counts an FMA as 2): D1
+# linear 53 (coordinates 18, fractions and weights 6, the tap sum 28, the
+# ring's sum 1) and cubic 275 (18, 48, 208, 1); D2's general kernel 53 a
+# sample (18, z offset 1, fractions 3, weights 3 + 4 + 8, taps 8, sums
+# 8); its line path 8 a sample (4 products, 4 sums) and 21 a (tilt, line,
+# plane) (coordinates 12, z offset 1, fractions 2, weights 2 + 4)
+D2_LINE_FLOPS = {"sample": 8, "line": 20}
+PARITY_OPS = {"d1": {1: 53, 3: 275}, "d2_general": 53,
+              "d2_line": {"sample": 8, "line": 21}}
 # SIRT against the plain forward and C's plain version: a few iterations
 # (the plain forward takes about half a second a sweep at 250^3)
 SIRT_REFERENCE_ITERATIONS = 3
@@ -583,22 +616,30 @@ def bound_ms(order, in_shape, out_shape, inside, per_launch):
 
 
 def d1_bound_ms(torch, vt, matrices, true_shape, local, order, mode, device):
-    """Least time on the card for D1's launches in one stream-body rotation
-    (a launch per output shard and source slab, ``matrices`` the shards'
-    slab-shifted matrices), the larger of the bytes over the memory rate
-    and the operations over the fp32 rate, from these matrices'
-    coordinates.  Bytes: each source voxel that a shard's inside voxels'
-    taps read (with ``mode``'s index rule), once per shard; the output
-    slab read and written where an inside voxel's z stencil meets a slab;
-    cval written once at each outside voxel.  Operations: FLOPS_INSIDE at
-    each voxel a launch samples, FLOPS_OUTSIDE at its others.  Returns
-    (ms, 'bytes' or 'operations', voxels sampled, source voxels read)."""
+    """Least time on the card for D1 in one stream-body rotation
+    (``matrices`` the shards' slab-shifted matrices), the larger of the
+    bytes over the memory rate and the operations over the fp32 rate, from
+    these matrices' coordinates, for the function and for the per-step
+    design; and the floor of a design that keeps bit parity.
+
+    The function (``bound_ms``): each source voxel that a shard's inside
+    voxels' taps read (with ``mode``'s index rule), once per shard; each
+    output voxel written once; FLOPS_INSIDE at each inside voxel, once,
+    FLOPS_OUTSIDE at the others.  The per-step design
+    (``per_step_bound_ms``, a launch per shard and slab): the same reads,
+    the accumulator read and written where an inside voxel's z stencil
+    meets a slab, cval written once at each outside voxel, FLOPS_INSIDE at
+    each voxel a launch samples and FLOPS_OUTSIDE at its others.  The
+    floor (``floor_ms``): the function's bytes, against PARITY_OPS at each
+    inside voxel and FLOPS_OUTSIDE at the others, at half the fp32 rate.
+    Returns a dict of these with what bounds each, the voxels inside, the
+    voxels the per-step launches sample and the source voxels read."""
     from voltools_tpu_torch.ops.interpolation import _inside, _mirror_index
     shards = len(matrices)
     h, w = true_shape[1:]
     first, taps = (0, 2) if order == 1 else (-1, 4)
     vox = local * h * w
-    words = ops = sampled = read_total = 0
+    step_words = ops = sampled = read_total = inside_total = 0
     for m in matrices:
         c = vt.ops.affine_coords((local, h, w), m, device=device)
         inside = _inside(c[0], c[1], c[2], true_shape, mode)
@@ -632,15 +673,26 @@ def d1_bound_ms(torch, vt, matrices, true_shape, local, order, mode, device):
                 meets |= own if okz is None else own & okz
             n = int((meets & inside).sum())
             sampled += n
-            words += 2 * n
+            step_words += 2 * n
             ops += FLOPS_INSIDE[order] * n + FLOPS_OUTSIDE * (vox - n)
-        words += int((~inside).sum())
+        inside_total += int(inside.sum())
+        step_words += int((~inside).sum())
         del axes, inside, meets
-    t_bytes = 4.0 * (words + read_total) / HBM_BYTES_PER_S
-    t_ops = ops / FP32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", sampled,
-            read_total)
+    outside_total = shards * vox - inside_total
+    result = {"inside_voxels": inside_total, "voxels_sampled": sampled,
+              "source_voxels_read": read_total}
+    for label, words, t_ops in (
+            ("bound", read_total + shards * vox,
+             (FLOPS_INSIDE[order] * inside_total
+              + FLOPS_OUTSIDE * outside_total) / FP32_FLOPS),
+            ("per_step_bound", read_total + step_words, ops / FP32_FLOPS),
+            ("floor", read_total + shards * vox,
+             (PARITY_OPS["d1"][order] * inside_total
+              + FLOPS_OUTSIDE * outside_total) / (FP32_FLOPS / 2))):
+        t_bytes = 4.0 * words / HBM_BYTES_PER_S
+        result[f"{label}_ms"] = max(t_bytes, t_ops) * 1e3
+        result[f"{label}_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return result
 
 
 def queued_launch_ms(torch, fn, module, name):
@@ -676,6 +728,33 @@ def queued_launch_ms(torch, fn, module, name):
         setattr(module, name, launch)
     sleep_ms = sleep[0].elapsed_time(sleep[1])
     assert host_ms < sleep_ms, (name, host_ms, sleep_ms)
+    return [a.elapsed_time(b) for a, b in pairs]
+
+
+def queued_ms(torch, calls, before=None):
+    """Device ms of each of ``calls`` (callables that launch one kernel
+    each), each between CUDA events recorded just before and just after
+    it, all queued behind a sleep kernel, after ``before`` (queued work
+    that is not timed).  Raises unless the host had queued them before the
+    sleep ended.  Returns the list of per-call ms."""
+    sleep = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    pairs = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+             for _ in calls]
+    torch.cuda.synchronize()
+    sleep[0].record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    sleep[1].record()
+    t0 = time.perf_counter()
+    if before is not None:
+        before()
+    for call, ev in zip(calls, pairs):
+        ev[0].record()
+        call()
+        ev[1].record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    sleep_ms = sleep[0].elapsed_time(sleep[1])
+    assert host_ms < sleep_ms, (host_ms, sleep_ms)
     return [a.elapsed_time(b) for a, b in pairs]
 
 
@@ -733,6 +812,7 @@ def main():
     slab = S.affine_slab
     bproj = BP.backproject
     d1 = PS.partial_sample
+    d1_ring = PS.partial_sample_ring
     d2 = PS.partial_project
     D1, D2 = "partial_sample", "partial_project"
     ABC = (S.NAME, K.NAME, BP.NAME)
@@ -740,11 +820,18 @@ def main():
     def zero_launches():
         """Every kernel's launch counter set to 0."""
         walk.launches = slab.launches = bproj.launches = 0
-        d1.launches = d2.launches = 0
+        d1.launches = d1_ring.launches = d2.launches = d2.line_launches = 0
 
     def launch_counts():
+        """Launches per kernel; D1's are its two entries' together."""
         return {S.NAME: slab.launches, K.NAME: walk.launches,
-                BP.NAME: bproj.launches, D1: d1.launches, D2: d2.launches}
+                BP.NAME: bproj.launches,
+                D1: d1.launches + d1_ring.launches, D2: d2.launches}
+
+    def entry_counts():
+        """D1's launches by entry, D2's on the line path."""
+        return {"d1_ring": d1_ring.launches, "d1_step": d1.launches,
+                "d2_line": d2.line_launches}
 
     def row_gather_against_baseline(projs, minv, shape, reps):
         """C's row-gather call (the wrapper: its pitched copy and launch)
@@ -825,28 +912,34 @@ def main():
     cached = {m.NAME: _build.library_path(
         m.NAME, defines.get(m.NAME)).is_file() for m in kernel_modules}
 
-    def build_baseline():
-        """C's row-gather path before its redesign, timed beside it in
-        phase 7; nothing of the package builds or calls it."""
-        lib = _build.BUILD_DIR / "libbackproject_baseline.so"
+    def build_baseline(source, name):
+        """A kernel before its redesign, timed beside it (C's in phase 7,
+        D's in phase 10); nothing of the package builds or calls it."""
+        lib = _build.BUILD_DIR / f"lib{name}.so"
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         t = time.perf_counter()
         src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           BASELINE_SOURCE)
+                           source)
         proc = subprocess.run(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), src],
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+             str(_build.CSRC_DIR), "-o", str(lib), src],
             capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {BASELINE_SOURCE}:\n"
+            raise RuntimeError(f"nvcc failed building {source}:\n"
                                f"{proc.stdout}\n{proc.stderr}")
         return str(lib), time.perf_counter() - t, proc.stdout + proc.stderr
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernel_modules) + 1) as pool:
-        baseline_build = pool.submit(build_baseline)
+    with ThreadPoolExecutor(len(kernel_modules) + 2) as pool:
+        baseline_build = pool.submit(build_baseline, BASELINE_SOURCE,
+                                     "backproject_baseline")
+        d_baseline_build = pool.submit(build_baseline, D_BASELINE_SOURCE,
+                                       "partial_sample_baseline")
         list(pool.map(lambda m: _build.build(m.NAME, defines.get(m.NAME)),
                       kernel_modules))
         baseline_lib, baseline_seconds, baseline_log = baseline_build.result()
+        d_baseline_lib, d_baseline_seconds, d_baseline_log = \
+            d_baseline_build.result()
     for m in kernel_modules:
         m._library()
     wall = time.perf_counter() - t0
@@ -857,10 +950,13 @@ def main():
              flags=" ".join(_build.flags(defines.get(m.NAME))),
              ptxas=[ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln])
-    emit("build", source=BASELINE_SOURCE, seconds=baseline_seconds,
-         built_now=True, wall_seconds_all=wall,
-         ptxas=[ln.strip() for ln in baseline_log.splitlines()
-                if "registers" in ln or "spill" in ln])
+    for source, seconds, log in (
+            (BASELINE_SOURCE, baseline_seconds, baseline_log),
+            (D_BASELINE_SOURCE, d_baseline_seconds, d_baseline_log)):
+        emit("build", source=source, seconds=seconds, built_now=True,
+             wall_seconds_all=wall,
+             ptxas=[ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln])
     baseline_backproject = ctypes.CDLL(
         baseline_lib).backproject_baseline_launch
     baseline_backproject.argtypes = (
@@ -868,6 +964,13 @@ def main():
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     baseline_backproject.restype = ctypes.c_int
+    d_baseline = ctypes.CDLL(d_baseline_lib)
+    d_baseline.partial_sample_baseline_launch.argtypes = PS.SAMPLE_ARGTYPES
+    d_baseline.partial_sample_baseline_launch.restype = ctypes.c_int
+    # the baseline's D2 entry: the committed one's parameters without `line`
+    d_baseline.partial_project_baseline_launch.argtypes = (
+        PS.PROJECT_ARGTYPES[:11] + PS.PROJECT_ARGTYPES[12:])
+    d_baseline.partial_project_baseline_launch.restype = ctypes.c_int
 
     # ------------------------------------------ 3. A vs its plain version
     rng = np.random.default_rng(1)
@@ -1164,22 +1267,42 @@ def main():
                                      for mc in (("constant", 0.0),
                                                 ("border", 1.5))):
             sv = ShardedVolume(vol, interp, mesh=mesh, mode=mode, cval=cval)
+            order = spline_order(interp)
+            local = sv._local
             for name, m in zip(("random_0", "random_1", "half_voxel_shift",
                                 "scale_past_the_edges"), ms):
-                before = d1.launches
+                # the ring entry, one launch a shard, through the body
+                before = (d1_ring.launches, d1.launches)
                 got = sv._stream_body(m)
-                assert d1.launches - before == SHARDS * SHARDS
+                assert (d1_ring.launches - before[0],
+                        d1.launches - before[1]) == (SHARDS, 0)
                 want = sv._stream_body(m, plain=True)
                 err = max(float((g - w).abs().max())
                           for g, w in zip(got, want))
                 assert all(torch.equal(g, w) for g, w in zip(got, want)), (
                     shape, interp, mode, name, err)
                 assert all(torch.isfinite(g).all() for g in got)
-                ps_rows.append({"shape": list(shape), "local": sv._local,
-                                "pad": sv._pad, "order": spline_order(interp),
+                # the per-step entry, a launch a slab, chained over each
+                # shard's ring from a zero accumulator
+                step_err = 0.0
+                for i in range(SHARDS):
+                    m_dev = _shifted(m, np.float32(i * local))
+                    acc = torch.zeros_like(want[i])
+                    for k in range(SHARDS):
+                        j = (i - k) % SHARDS
+                        d1(sv.data[j], m_dev, j * local, shape, order, mode,
+                           acc, k == SHARDS - 1, cval)
+                    step_err = max(step_err,
+                                   float((acc - want[i]).abs().max()))
+                    assert torch.equal(acc, want[i]), (
+                        shape, interp, mode, name, "per step", i, step_err)
+                assert d1.launches - before[1] == SHARDS * SHARDS
+                ps_rows.append({"shape": list(shape), "local": local,
+                                "pad": sv._pad, "order": order,
                                 "mode": mode, "cval": cval, "matrix": name,
-                                "max_abs_err": err})
-            del sv, got, want
+                                "max_abs_err": err,
+                                "per_step_max_abs_err": step_err})
+            del sv, got, want, acc
     d1_worst = max(r["max_abs_err"] for r in ps_rows)
     pp_rows = []
     pp_cases = [("recon_series_axis0", big, 0, recon_series),
@@ -1193,27 +1316,42 @@ def main():
         vol = torch.zeros((local * SHARDS,) + shape[1:], device=dev)
         vol[:shape[0]] = torch.from_numpy(
             rng.standard_normal(shape, dtype=np.float32)).to(dev)
+        keep = [a for a in range(3) if a != axis]
+        line = PS.line_axis(ms, axis) == keep[1]
+        assert line == name.endswith("axis0"), (name, PS.line_axis(ms, axis))
         for i in range(SHARDS):
             x = vol[i * local:(i + 1) * local]
             off = float(np.float32(i * local))
-            before = d2.launches
+            before = (d2.launches, d2.line_launches)
             got = d2(x, ms, off, shape, axis)
-            assert d2.launches - before == 1
+            assert (d2.launches - before[0],
+                    d2.line_launches - before[1]) == (1, int(line))
+            # the line path against the general kernel, bit for bit
+            general = d2(x, ms, off, shape, axis, _force_general=True) \
+                if line else got
+            assert torch.equal(got, general), (
+                name, i, float((got - general).abs().max()))
             want = PS.plain_partial_project(x, ms, off, shape, axis)
             largest = float(PS.plain_partial_project(x.abs(), ms, off, shape,
                                                      axis).max())
-            err = float((got - want).abs().max())
+            err = max(float((got - want).abs().max()),
+                      float((general - want).abs().max()))
             atol = PS.sum_order_atol(shape[axis], largest)
             assert torch.isfinite(got).all() and err <= atol, (name, i, err,
                                                                atol)
             pp_rows.append({"case": name, "shape": list(shape),
                             "projection_axis": axis, "tilts": len(ms),
-                            "shard": i, "max_abs_err": err, "atol": atol,
+                            "shard": i,
+                            "path": "line" if line else "general",
+                            "line_equal_to_general": True if line else None,
+                            "max_abs_err": err, "atol": atol,
                             "equal_to_plain": bool(torch.equal(got, want))})
-        del vol, x, got, want
+        del vol, x, got, general, want
     d2_worst = max(r["max_abs_err"] for r in pp_rows)
     emit("parity_partial_sample", kernels=[D1, D2], shards=SHARDS,
-         d1_cases=ps_rows, d1_equal_to_plain=True, d1_max_abs_err=d1_worst,
+         d1_cases=ps_rows, d1_equal_to_plain=True,
+         d1_entries_equal_to_plain=["ring", "per_step"],
+         d1_max_abs_err=d1_worst,
          d2_cases=pp_rows, d2_max_abs_err=d2_worst,
          d2_tolerance="2 (n_p - 1) 2**-24 x the largest plain partial "
          "projection of the slab's magnitudes: two orders of a float32 sum "
@@ -2055,12 +2193,14 @@ def main():
         return n
 
     shard_launches = dict.fromkeys(launch_counts(), 0)
+    shard_entries = dict.fromkeys(entry_counts(), 0)
 
     def launched(fn, routes, backprojections=0, d1_launches=0,
                  d2_launches=0):
         """Run ``fn`` with the counters set to 0 just before; the counts
         just after must be what ``routes`` give, C's ``backprojections``
-        and D1's and D2's launches; add them to the phase's."""
+        and D1's and D2's launches, every D1 launch on its ring entry and
+        every D2 launch on the line path; add them to the phase's."""
         torch.cuda.synchronize()
         zero_launches()
         result = fn()
@@ -2069,8 +2209,13 @@ def main():
         want = dict(counted(routes), **{BP.NAME: backprojections,
                                         D1: d1_launches, D2: d2_launches})
         assert got == want, (got, want)
+        entries = entry_counts()
+        assert entries == {"d1_ring": d1_launches, "d1_step": 0,
+                           "d2_line": d2_launches}, entries
         for k in got:
             shard_launches[k] += got[k]
+        for k in entries:
+            shard_entries[k] += entries[k]
         return result
 
     def kernel_of(route):
@@ -2104,10 +2249,10 @@ def main():
         for strategy, mname, m in cases:
             sv = svs[name, strategy]
             body, routes = shard_routes(sv, m)
-            # the stream body: D1 once per shard and slab, A and B never
+            # the stream body: D1's ring entry once per shard (its slabs
+            # all lie on the one card), A and B never
             slabs = launched(lambda: sv.affine(m, output="device"), routes,
-                             d1_launches=SHARDS * SHARDS
-                             if body == "stream" else 0)
+                             d1_launches=SHARDS if body == "stream" else 0)
             assert len(slabs) == SHARDS and all(
                 x.device == dev for x in slabs), [x.device for x in slabs]
             got = torch.cat(slabs)
@@ -2337,34 +2482,87 @@ def main():
     st["sirt_mesh_plain_forward_ms_per_iteration"] = (plain_sirt[1]
                                                       - plain_sirt[0])
 
-    # D1 in the stream body itself, its 16 launches a rotation on 4 shards:
-    # the body's time, the device time of its launches alone, what the
-    # profiler records of it, and its plain steps (plain=True) timed once
+    # D1 in the stream body itself, its 4 ring launches a rotation on 4
+    # shards: the body's time, the device time of its launches alone, what
+    # the profiler records of it, and its plain steps (plain=True) timed
+    # once; in the same rounds, the 16 launches of its per-step entry and
+    # of D before its redesign (tools/partial_sample_baseline.cu) over the
+    # same rings, each equal to the body's output first
     from torch.nn.functional import grid_sample
     local = -(-SIZE // SHARDS)
     shifted = [_shifted(rots[0], np.float32(i * local))
                for i in range(SHARDS)]
+    rings = [[(i - k) % SHARDS for k in range(SHARDS)]
+             for i in range(SHARDS)]
     d_times = {}
     for name, order_name in (("linear", "linear"), ("filt_bspline", "cubic")):
         sv = svs[name, "stream"]
+        order = spline_order(sv.interpolation)
         body = functools.partial(sv._stream_body, rots[0])
         d_times[f"d1_{order_name}_body_ms"] = time_ms(torch, body, reps=10)
-        kernel = [queued_launch_ms(torch, body, sharded_module,
-                                   "partial_sample") for _ in range(5)]
-        assert all(len(k) == SHARDS * SHARDS for k in kernel), kernel
-        sums = sorted(sum(k) for k in kernel)
-        d_times[f"d1_{order_name}_kernel_ms"] = sums[len(sums) // 2]
-        d_times[f"d1_{order_name}_kernel_ms_range"] = [sums[0], sums[-1]]
-        d_times[f"d1_{order_name}_launch_ms"] = kernel[0]
+        want = body()
+        accs = [torch.empty_like(w) for w in want]
+
+        def step_calls(baseline):
+            """The per-step launches over each shard's ring from a zero
+            accumulator, one call a launch: the committed entry's, or PR
+            14's."""
+            calls = []
+            for i, ring in enumerate(rings):
+                rows = np.ascontiguousarray(shifted[i][:3])
+                for k, j in enumerate(ring):
+                    last = k == SHARDS - 1
+                    if not baseline:
+                        calls.append(functools.partial(
+                            d1, sv.data[j], shifted[i], j * local, big,
+                            order, sv.mode, accs[i], last, sv.cval))
+                        continue
+
+                    def launch(i=i, j=j, rows=rows, last=last):
+                        code = d_baseline.partial_sample_baseline_launch(
+                            sv.data[j].data_ptr(), local, j * local, *big,
+                            rows.ctypes.data, accs[i].data_ptr(),
+                            *accs[i].shape, order, int(sv.mode == "border"),
+                            int(last), sv.cval,
+                            torch.cuda.current_stream().cuda_stream)
+                        assert code == 0, code
+                    calls.append(launch)
+            return calls
+
+        def zero_accs():
+            for a in accs:
+                a.zero_()
+
+        for baseline in (False, True):
+            zero_accs()
+            for call in step_calls(baseline):
+                call()
+            assert all(torch.equal(a, w) for a, w in zip(accs, want)), (
+                order_name, "baseline" if baseline else "per step")
+        del want
+        runs = {"ring": [], "per_step": [], "baseline": []}
+        for _ in range(5):
+            runs["ring"].append(queued_launch_ms(
+                torch, body, sharded_module, "partial_sample_ring"))
+            runs["per_step"].append(queued_ms(torch, step_calls(False),
+                                              zero_accs))
+            runs["baseline"].append(queued_ms(torch, step_calls(True),
+                                              zero_accs))
+        assert all(len(k) == SHARDS for k in runs["ring"]), runs["ring"]
+        for kind, kernel in runs.items():
+            sums = sorted(sum(k) for k in kernel)
+            label = "kernel" if kind == "ring" else kind
+            d_times[f"d1_{order_name}_{label}_ms"] = sums[len(sums) // 2]
+            d_times[f"d1_{order_name}_{label}_ms_range"] = [sums[0],
+                                                            sums[-1]]
+            d_times[f"d1_{order_name}_{label}_launch_ms"] = kernel[0]
+        del accs
         d_times[f"d1_{order_name}_profiler"] = profiler_view(torch, body)
         d_times[f"d1_{order_name}_plain_ms"] = event_ms(
             torch, lambda: sv._stream_body(rots[0], plain=True))[0]
-        (d_times[f"d1_{order_name}_bound_ms"],
-         d_times[f"d1_{order_name}_bound_by"],
-         d_times[f"d1_{order_name}_voxels_sampled"],
-         d_times[f"d1_{order_name}_source_voxels_read"]) = d1_bound_ms(
-            torch, vt, shifted, big, local, spline_order(sv.interpolation),
-            sv.mode, dev)
+        for k, v in d1_bound_ms(torch, vt, shifted, big, local, order,
+                                sv.mode, dev).items():
+            d_times[f"d1_{order_name}_{k}"] = v
     # grid_sample, trilinear with zero padding, on each slab at the shard's
     # coordinates: the 16 calls of a rotation, timed only
     sv = svs["linear", "stream"]
@@ -2382,7 +2580,10 @@ def main():
         align_corners=True) for j, g in grids], reps=5)
     del grids
 
-    # D2: a sweep over the reconstruction's 41 tilts, one launch a shard
+    # D2: a sweep over the reconstruction's 41 tilts, one launch a shard, on
+    # the line path (the series leaves array axis 2 alone), on the general
+    # kernel and on D before its redesign, in turns
+    assert PS.line_axis(rms, 0) == 2
     xs_full = torch.zeros((local * SHARDS,) + big[1:], device=dev)
     xs_full[:SIZE] = vol_dev
     xs = [xs_full[i * local:(i + 1) * local] for i in range(SHARDS)]
@@ -2393,42 +2594,88 @@ def main():
     # launch counter's holder and stays as it is
     d2_call = types.SimpleNamespace(partial_project=PS.partial_project)
 
-    def sweep():
-        return [d2_call.partial_project(xs[i], rms, offs[i], big, 0)
+    def sweep(general=False):
+        return [d2_call.partial_project(xs[i], rms, offs[i], big, 0,
+                                        _force_general=general)
                 for i in range(SHARDS)]
 
+    d2_rows = torch.from_numpy(np.ascontiguousarray(rms[:, :3])).to(dev)
+    d2_outs = [torch.empty((len(rms),) + big[1:], device=dev)
+               for _ in range(SHARDS)]
+
+    def baseline_sweep_calls():
+        def launch(i):
+            code = d_baseline.partial_project_baseline_launch(
+                xs[i].data_ptr(), *xs[i].shape, d2_rows.data_ptr(),
+                len(rms), offs[i], *big, 0, d2_outs[i].data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+            assert code == 0, code
+        return [functools.partial(launch, i) for i in range(SHARDS)]
+
     d_times["d2_sweep_ms"] = time_ms(torch, sweep, reps=10)
-    kernel = [queued_launch_ms(torch, sweep, d2_call, "partial_project")
-              for _ in range(5)]
-    assert all(len(k) == SHARDS for k in kernel), kernel
-    sums = sorted(sum(k) for k in kernel)
-    d_times["d2_kernel_ms"] = sums[len(sums) // 2]
-    d_times["d2_kernel_ms_range"] = [sums[0], sums[-1]]
-    d_times["d2_launch_ms"] = kernel[0]
+    d_times["d2_general_sweep_ms"] = time_ms(
+        torch, lambda: sweep(general=True), reps=10)
+    line_out, general_out = sweep(), sweep(general=True)
+    for call in baseline_sweep_calls():
+        call()
+    for a, b, c in zip(line_out, general_out, d2_outs):
+        assert torch.equal(a, b) and torch.equal(b, c), "D2 sweeps differ"
+    del line_out, general_out
+    runs = {"line": [], "general": [], "baseline": []}
+    for _ in range(5):
+        runs["line"].append(queued_launch_ms(torch, sweep, d2_call,
+                                             "partial_project"))
+        runs["general"].append(queued_launch_ms(
+            torch, lambda: sweep(general=True), d2_call, "partial_project"))
+        runs["baseline"].append(queued_ms(torch, baseline_sweep_calls()))
+    assert all(len(k) == SHARDS for r in runs.values() for k in r), runs
+    for kind, kernel in runs.items():
+        sums = sorted(sum(k) for k in kernel)
+        label = "kernel" if kind == "line" else kind
+        d_times[f"d2_{label}_ms"] = sums[len(sums) // 2]
+        d_times[f"d2_{label}_ms_range"] = [sums[0], sums[-1]]
+        d_times[f"d2_{label}_launch_ms"] = kernel[0]
+    del d2_outs, d2_rows
     d_times["d2_profiler"] = profiler_view(torch, sweep)
     d_times["d2_plain_ms"] = event_ms(torch, lambda: [
         PS.plain_partial_project(xs[i], rms, offs[i], big, 0)
         for i in range(SHARDS)])[0]
-    # its bound: the slabs read and the projections written once over the
-    # memory rate, against the samples whose stencil meets a slab (inside,
-    # floor(z - off) in [-1, local - 1]) at FLOPS_INSIDE linear and one add
-    # each over the fp32 rate
+    # its bounds: the slabs read and the projections written once over the
+    # memory rate, against, over the fp32 rate, the samples whose stencil
+    # meets a slab (inside, floor(z - off) in [-1, local - 1]) at
+    # FLOPS_INSIDE linear and one add each (the general sample), or at a
+    # bilinear sample each and a line's work at each (tilt, line, plane)
+    # that has one (the line geometry: its samples do not depend on b);
+    # and the floors of a design that keeps bit parity (PARITY_OPS)
     from voltools_tpu_torch.ops.interpolation import _inside
-    samples = 0
+    samples = line_planes = 0
     library_ms = 0.0
     for m in rms:
         c = vt.ops.affine_coords(big, m, device=dev)
         inside = _inside(c[0], c[1], c[2], big, "constant")
         for i in range(SHARDS):
             f = torch.floor(c[0] - offs[i])
-            samples += int((inside & (f >= -1) & (f <= local - 1)).sum())
-        del c, inside
+            meets = inside & (f >= -1) & (f <= local - 1)
+            samples += int(meets.sum())
+            line_planes += int(meets[..., 0].sum())
+        del c, inside, f, meets
+    assert samples == line_planes * SIZE, (samples, line_planes)
     tb = 4.0 * SHARDS * (local * SIZE * SIZE + len(rms) * SIZE * SIZE) \
         / HBM_BYTES_PER_S
-    to = (FLOPS_INSIDE[1] + 1) * samples / FP32_FLOPS
-    d_times["d2_bound_ms"] = max(tb, to) * 1e3
-    d_times["d2_bound_by"] = "bytes" if tb >= to else "operations"
+    for label, ops, rate in (
+            ("bound", (FLOPS_INSIDE[1] + 1) * samples, FP32_FLOPS),
+            ("line_bound", D2_LINE_FLOPS["sample"] * samples
+             + D2_LINE_FLOPS["line"] * line_planes, FP32_FLOPS),
+            ("general_floor", PARITY_OPS["d2_general"] * samples,
+             FP32_FLOPS / 2),
+            ("line_floor", PARITY_OPS["d2_line"]["sample"] * samples
+             + PARITY_OPS["d2_line"]["line"] * line_planes,
+             FP32_FLOPS / 2)):
+        to = ops / rate
+        d_times[f"d2_{label}_ms"] = max(tb, to) * 1e3
+        d_times[f"d2_{label}_by"] = "bytes" if tb >= to else "operations"
     d_times["d2_samples"] = samples
+    d_times["d2_line_planes"] = line_planes
     # grid_sample, trilinear with zero padding, of each slab at every
     # voxel of each tilt, then summed over the projection axis: timed
     # only, a shard at a time (41 grids of 250^3 points)
@@ -2452,7 +2699,8 @@ def main():
 
     emit("sharded", shape=list(big), shards=SHARDS,
          mesh=[str(d) for d in mesh.devices], local_planes=-(-SIZE // SHARDS),
-         launches=shard_launches, check_seconds=check_seconds,
+         launches=shard_launches, launches_by_entry=shard_entries,
+         check_seconds=check_seconds,
          volume_calls=rows, max_abs_err_by_body=worst_sharded,
          two_shard_prefilter_max_abs_err=prefilter_err,
          two_shard_affine_max_abs_err=two_shard_err,
@@ -2772,35 +3020,64 @@ def main():
     kernels += [{
         "name": D1, "route": "cuda", "source": PS.SOURCE,
         "replaces": PS.REPLACES[D1], "launches": main_tilt[D1],
-        "launches_by_path": by_path(D1), "max_abs_err": d1_worst,
+        "launches_by_path": by_path(D1),
+        "launches_by_entry": {"ring": shard_entries["d1_ring"],
+                              "per_step": shard_entries["d1_step"]},
+        "max_abs_err": d1_worst,
         "ms": st["d1_linear_kernel_ms"], "plain_ms": st["d1_linear_plain_ms"],
         "bound_ms": st["d1_linear_bound_ms"],
         "bound_by": st["d1_linear_bound_by"],
         "library_ms": st["d1_grid_sample_ms"],
         "shape": list(big), "matrices": "one random rotation through the "
-        "stream body on 4 shards, linear: the device time of its 16 "
+        "stream body on 4 shards, linear: the device time of its 4 ring "
         "launches (events around each, the call queued behind a sleep "
-        "kernel); body_ms the stream body's call; the plain version the "
+        "kernel); body_ms the stream body's call; per_step_ms the 16 "
+        "launches of the per-step entry over the same rings, baseline_ms "
+        "those of D before its redesign, in the same rounds; bound_ms the "
+        "function's, per_step_bound_ms the per-step design's, floor_ms "
+        "that of a design that keeps bit parity; the plain version the "
         "stream body with plain=True",
         "equal_to_plain": True, "body_ms": st["d1_linear_body_ms"],
+        "per_step_ms": st["d1_linear_per_step_ms"],
+        "baseline_ms": st["d1_linear_baseline_ms"],
+        "per_step_bound_ms": st["d1_linear_per_step_bound_ms"],
+        "floor_ms": st["d1_linear_floor_ms"],
         "cubic": {"ms": st["d1_cubic_kernel_ms"],
                   "plain_ms": st["d1_cubic_plain_ms"],
                   "bound_ms": st["d1_cubic_bound_ms"],
                   "bound_by": st["d1_cubic_bound_by"], "library_ms": None,
-                  "body_ms": st["d1_cubic_body_ms"]},
+                  "body_ms": st["d1_cubic_body_ms"],
+                  "per_step_ms": st["d1_cubic_per_step_ms"],
+                  "baseline_ms": st["d1_cubic_baseline_ms"],
+                  "per_step_bound_ms": st["d1_cubic_per_step_bound_ms"],
+                  "floor_ms": st["d1_cubic_floor_ms"]},
     }, {
         "name": D2, "route": "cuda", "source": PS.SOURCE,
         "replaces": PS.REPLACES[D2], "launches": main_tilt[D2],
-        "launches_by_path": by_path(D2), "max_abs_err": d2_worst,
+        "launches_by_path": by_path(D2),
+        "line_launches": shard_entries["d2_line"],
+        "max_abs_err": d2_worst,
         "ms": st["d2_kernel_ms"], "plain_ms": st["d2_plain_ms"],
-        "bound_ms": st["d2_bound_ms"], "bound_by": st["d2_bound_by"],
+        "bound_ms": st["d2_line_bound_ms"],
+        "bound_by": st["d2_line_bound_by"],
         "library_ms": st["d2_grid_sample_sum_ms"],
         "shape": list(big), "matrices": "the reconstruction's 41-tilt "
         "series, projection axis 0: one sweep, a launch for each of 4 "
-        "shards, the device time of the 4 launches (events around each, "
-        "the sweep queued behind a sleep kernel); sweep_ms the sweep's "
-        "call", "sweep_ms": st["d2_sweep_ms"],
-        "tolerance": "sum_order_atol: two orders of a float32 sum",
+        "shards on the line path, the device time of the 4 launches "
+        "(events around each, the sweep queued behind a sleep kernel); "
+        "general_ms the general kernel's (_force_general), baseline_ms "
+        "D's before its redesign, in the same rounds; bound_ms the line "
+        "geometry's (a bilinear sample), general_bound_ms a trilinear "
+        "sample's, the floors those of designs that keep bit parity; "
+        "sweep_ms the sweep's call",
+        "sweep_ms": st["d2_sweep_ms"],
+        "general_ms": st["d2_general_ms"],
+        "baseline_ms": st["d2_baseline_ms"],
+        "general_bound_ms": st["d2_bound_ms"],
+        "floor_ms": st["d2_line_floor_ms"],
+        "general_floor_ms": st["d2_general_floor_ms"],
+        "tolerance": "sum_order_atol: two orders of a float32 sum; the "
+        "line path equal to the general kernel",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

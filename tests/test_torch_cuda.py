@@ -26,10 +26,10 @@ from voltools_tpu_torch.kernels.backproject import (backproject,
                                                     plain_backproject,
                                                     row_gather)
 from voltools_tpu_torch.kernels.layout import pitched, tma_ready
-from voltools_tpu_torch.kernels.partial_sample import (partial_project,
-                                                       partial_sample,
-                                                       plain_partial_project,
-                                                       sum_order_atol)
+from voltools_tpu_torch.kernels.partial_sample import (
+    RING_CAPACITY, _library as partial_library, line_axis, partial_project,
+    partial_sample, partial_sample_ring, plain_partial_project,
+    plain_partial_ring, sum_order_atol)
 from voltools_tpu_torch.kernels.planner import (BRICK, SMEM_BUDGET, SlabPlan,
                                                 slab_extents, slab_plan)
 from voltools_tpu_torch.models import (TiltSeriesProjector,
@@ -534,7 +534,8 @@ def test_sharded_volume_on_a_4_shard_mesh(dev, shape, interpolation, mode):
     held against StaticVolume on the same card (atol 3e-5, 5e-4 off knife
     edges for the global bodies); 38 planes pad to 40.  The halo and
     gather bodies launch A or B once per shard; the stream body launches
-    neither, and D1 once per shard and slab: 4 x 4 times."""
+    neither, and D1's ring entry once per shard (the four slabs share the
+    card), its per-step entry never."""
     from voltools_tpu_torch.parallel import ShardedVolume
     vol = np.random.default_rng(sum(shape)).random(shape).astype(np.float32)
     center = tuple(s / 2 for s in shape)
@@ -550,13 +551,15 @@ def test_sharded_volume_on_a_4_shard_mesh(dev, shape, interpolation, mode):
         for m, atol in ((local_m, 3e-5), (global_m, 5e-4)):
             before = affine_resample.launches + affine_slab.launches
             before_d1 = partial_sample.launches
+            before_ring = partial_sample_ring.launches
             slabs = sv.affine(m, output="device")
             launched = affine_resample.launches + affine_slab.launches \
                 - before
             global_stream = m is global_m and strategy == "stream"
             assert launched == (0 if global_stream else 4)
-            assert partial_sample.launches - before_d1 == (
-                16 if global_stream else 0)
+            assert partial_sample.launches == before_d1
+            assert partial_sample_ring.launches - before_ring == (
+                4 if global_stream else 0)
             assert all(s.device == dev for s in slabs)
             got = torch.cat(slabs)
             want = single.affine(m, output="device")
@@ -602,9 +605,12 @@ def test_sharded_batch_and_reconstructions_on_a_4_shard_mesh(dev):
         one = wbp_reconstruct(p, ms, shape, device="cuda")
         assert np.abs(res - one).max() <= 1e-4 * np.abs(one).max()
     before = partial_project.launches
+    before_line = partial_project.line_launches
     res = sirt_reconstruct(p, ms, shape, iterations=3, mesh=mesh)
-    # D2 once per shard for the row sums and for each iteration's forward
+    # D2 once per shard for the row sums and for each iteration's forward,
+    # every launch on the line path (a tilt about array axis 2)
     assert partial_project.launches - before == 4 * (1 + 3)
+    assert partial_project.line_launches - before_line == 4 * (1 + 3)
     one = sirt_reconstruct(p, ms, shape, iterations=3, device="cuda",
                            _plain_forward=True)
     assert np.abs(res - one).max() <= 1e-4 * np.abs(one).max()
@@ -618,11 +624,11 @@ def test_sharded_batch_and_reconstructions_on_a_4_shard_mesh(dev):
 @pytest.mark.parametrize("interpolation", ["linear", "filt_bspline"])
 def test_stream_body_equals_its_plain_version(dev, shape, mode, cval,
                                               interpolation):
-    """The stream body on a 4-shard mesh through D1 equals its plain
-    version on the card bit for bit (37 planes pad to 40), for a full 3-D
-    rotation, a half-voxel shift along z (every stencil straddles two
-    planes, slab boundaries included) and a scale whose taps pass every
-    edge."""
+    """The stream body on a 4-shard mesh through D1 (its ring entry, one
+    launch a shard) equals its plain version on the card bit for bit (37
+    planes pad to 40), for a full 3-D rotation, a half-voxel shift along z
+    (every stencil straddles two planes, slab boundaries included) and a
+    scale whose taps pass every edge."""
     from voltools_tpu_torch.parallel import ShardedVolume
     vol = np.random.default_rng(shape[0]).random(shape).astype(np.float32)
     center = tuple(s / 2 for s in shape)
@@ -633,9 +639,9 @@ def test_stream_body_equals_its_plain_version(dev, shape, mode, cval,
               translation_matrix((0.5, 0.25, -0.5)),
               transform_matrix(scale=(1.2, 0.85, 1.1), center=center)):
         m = np.asarray(m, np.float32)
-        before = partial_sample.launches
+        before = partial_sample_ring.launches
         got = sv._stream_body(m)
-        assert partial_sample.launches - before == 16
+        assert partial_sample_ring.launches - before == 4
         want = sv._stream_body(m, plain=True)
         for g, w in zip(got, want):
             assert torch.equal(g, w), float((g - w).abs().max())
@@ -666,6 +672,124 @@ def test_partial_project_within_the_sum_order_bound(dev, shape,
         before = partial_project.launches
         got = partial_project(x, ms, off, shape, projection_axis)
         assert partial_project.launches - before == 1
+        want = plain_partial_project(x, ms, off, shape, projection_axis)
+        largest = float(plain_partial_project(x.abs(), ms, off, shape,
+                                              projection_axis).max())
+        err = float((got - want).abs().max())
+        assert err <= sum_order_atol(shape[projection_axis], largest), err
+
+
+@pytest.mark.parametrize("entry", ["ring", "steps"])
+@pytest.mark.parametrize("shape", [(40, 24, 28), (37, 20, 33)])
+@pytest.mark.parametrize("mode,cval", [("constant", 0.0), ("border", 1.5)])
+@pytest.mark.parametrize("order", [1, 3])
+def test_d1_entries_equal_the_plain_chain(dev, entry, shape, mode, cval,
+                                          order):
+    """Each shard of a 4-shard ring (37 planes pad to 40) through D1's ring
+    entry (one launch) or its per-step entry chained over the same slabs
+    in ring order (a launch a slab) equals the chain of plain steps on
+    the card (plain_partial_ring) bit for bit: a full 3-D rotation, a
+    half-voxel shift along z and a scale past every edge."""
+    from voltools_tpu_torch.parallel.sharded import _shifted
+    local = -(-shape[0] // 4)
+    vol = np.zeros((4 * local,) + shape[1:], np.float32)
+    vol[:shape[0]] = np.random.default_rng(sum(shape)).random(shape)
+    slabs = [torch.from_numpy(vol[i * local:(i + 1) * local].copy()).to(dev)
+             for i in range(4)]
+    out_shape = (local,) + shape[1:]
+    center = tuple(s / 2 for s in shape)
+    for m in (transform_matrix(rotation=(111, -67, 148),
+                               rotation_order="sxyz", center=center),
+              translation_matrix((0.5, 0.25, -0.5)),
+              transform_matrix(scale=(1.2, 0.85, 1.1), center=center)):
+        for i in range(4):
+            m_dev = _shifted(np.asarray(m, np.float32), np.float32(i * local))
+            ring = [(i - k) % 4 for k in range(4)]
+            z0s = [j * local for j in ring]
+            before = (partial_sample_ring.launches, partial_sample.launches)
+            if entry == "ring":
+                got = partial_sample_ring([slabs[j] for j in ring], z0s,
+                                          m_dev, shape, order, mode,
+                                          out_shape, cval)
+            else:
+                got = torch.zeros(out_shape, device=dev)
+                for k, j in enumerate(ring):
+                    partial_sample(slabs[j], m_dev, z0s[k], shape, order,
+                                   mode, got, k == 3, cval)
+            assert (partial_sample_ring.launches - before[0],
+                    partial_sample.launches - before[1]) == (
+                (1, 0) if entry == "ring" else (0, 4))
+            want = plain_partial_ring([slabs[j] for j in ring], z0s, m_dev,
+                                      shape, order, mode, out_shape, cval)
+            assert torch.equal(got, want), float((got - want).abs().max())
+
+
+def test_d1_ring_capacity(dev):
+    """The kernel takes a ring of RING_CAPACITY slabs and refuses a longer
+    one, as the wrapper does."""
+    import ctypes
+    m = np.eye(4, dtype=np.float32)
+    slab = torch.zeros((2, 4, 4), device=dev)
+    assert torch.equal(partial_sample_ring(
+        [slab] * RING_CAPACITY, [2 * k for k in range(RING_CAPACITY)], m,
+        (2 * RING_CAPACITY, 4, 4), 1, "constant", (2, 4, 4)),
+        torch.zeros((2, 4, 4), device=dev))
+    n = RING_CAPACITY + 1
+    with pytest.raises(ValueError, match="at most"):
+        partial_sample_ring([slab] * n, [0] * n, m, (2, 4, 4), 1, "constant",
+                            (2, 4, 4))
+    out = torch.empty((2, 4, 4), device=dev)
+    code = partial_library().partial_sample_ring_launch(
+        (ctypes.c_void_p * n)(*[slab.data_ptr()] * n), (ctypes.c_int * n)(),
+        n, 2, 2, 4, 4, np.ascontiguousarray(m[:3]).ctypes.data,
+        out.data_ptr(), 2, 4, 4, 1, 0, 0.0,
+        torch.cuda.current_stream().cuda_stream)
+    assert code != 0
+
+
+def _single_axis_series(shape, order, position):
+    center = tuple((s - 1) / 2 for s in shape)
+    ms = []
+    for a in np.arange(-60.0, 61.0, 3.0):
+        triple = [0.0, 0.0, 0.0]
+        triple[position] = float(a)
+        ms.append(transform_matrix(rotation=triple, rotation_order=order,
+                                   center=center))
+    return np.stack(ms).astype(np.float32)
+
+
+# (shape, projection axis, rotation order, position): the mesh SIRT's
+# series, an odd shape, position 2, projection axis 1, and axis 2 (its
+# line path runs along array axis 1)
+LINE_CASES = [((40, 36, 32), 0, "rzxz", 0), ((37, 50, 61), 0, "rzxz", 0),
+              ((36, 40, 32), 0, "rzxz", 2), ((38, 30, 34), 1, "rzxz", 0),
+              ((30, 34, 40), 2, "sxyz", 1)]
+
+
+@pytest.mark.parametrize("shape,projection_axis,order,position", LINE_CASES)
+def test_partial_project_line_path(dev, shape, projection_axis, order,
+                                   position):
+    """D2 on a tilt series whose matrices leave the rays' second axis
+    alone: the launch takes the line path (line_launches), equals the
+    general kernel (_force_general) bit for bit per slab of a 4-shard
+    split of signed values, and lies within sum_order_atol of the plain
+    version."""
+    ms = _single_axis_series(shape, order, position)
+    keep = [a for a in range(3) if a != projection_axis]
+    assert line_axis(ms, projection_axis) == keep[1]
+    local = -(-shape[0] // 4)
+    vol = np.zeros((4 * local,) + shape[1:], np.float32)
+    vol[:shape[0]] = np.random.default_rng(sum(shape)).standard_normal(shape)
+    for i in range(4):
+        x = torch.from_numpy(vol[i * local:(i + 1) * local].copy()).to(dev)
+        off = float(np.float32(i * local))
+        before = (partial_project.launches, partial_project.line_launches)
+        got = partial_project(x, ms, off, shape, projection_axis)
+        general = partial_project(x, ms, off, shape, projection_axis,
+                                  _force_general=True)
+        assert (partial_project.launches - before[0],
+                partial_project.line_launches - before[1]) == (2, 1)
+        assert torch.equal(got, general), float((got - general).abs().max())
         want = plain_partial_project(x, ms, off, shape, projection_axis)
         largest = float(plain_partial_project(x.abs(), ms, off, shape,
                                               projection_axis).max())

@@ -5,13 +5,17 @@ Two functions of the sharded paths, where the JAX package leaves the work
 to XLA, each a sum of per-tap zero-extended samples of one z slab of a
 volume (the partials of disjoint slabs sum to the whole volume's sample):
 
-* :func:`partial_sample` (D1), one step of :class:`ShardedVolume`'s ring
-  stream (``voltools_tpu/parallel/sharded.py::_partial_sample_pertap``):
-  adds one source slab's partial sample into a shard's accumulator, and on
-  the ring's last step applies the whole-sample inside test with ``cval``.
-  Its plain version is :func:`plain_partial_step`, over
-  :func:`plain_partial_sample` at the coordinates of :func:`sample_frame`;
-  the kernel equals it bit for bit.
+* D1, :class:`ShardedVolume`'s ring stream
+  (``voltools_tpu/parallel/sharded.py::_partial_sample_pertap``), two
+  entries: :func:`partial_sample_ring`, a shard's whole ring in one launch
+  (every slab of the ring on the shard's device), and
+  :func:`partial_sample`, one step of it, which adds one source slab's
+  partial sample into a shard's accumulator and on the ring's last step
+  applies the whole-sample inside test with ``cval``.  Their plain
+  version is the chain of :func:`plain_partial_step` calls, over
+  :func:`plain_partial_sample` at the coordinates of :func:`sample_frame`
+  (:func:`plain_partial_ring` for a whole ring); both kernels equal it bit
+  for bit.
 * :func:`partial_project` (D2), a shard's part of the volume-sharded SIRT
   forward (``voltools_tpu/models/reconstruction.py::_sirt_mesh``): per
   tilt, the sum over the projection axis of the slab's per-tap samples,
@@ -19,14 +23,19 @@ volume (the partials of disjoint slabs sum to the whole volume's sample):
   :func:`plain_partial_project`; the kernel sums the planes in order, as
   the JAX package's ``fori_loop`` does, the plain version in chunks with
   ``torch.sum``, so the two agree within the error of a float32 sum
-  (:func:`sum_order_atol`).
+  (:func:`sum_order_atol`).  Where :func:`line_axis` finds the rays'
+  second axis untouched by every matrix (tilt series about an axis of
+  the projection plane), the kernel's line path forms each line's
+  coordinates once for all its rays and reads 4 taps a sample in place
+  of 8, equal to the general kernel bit for bit on a finite slab.
 
 For CUDA tensors each launches ``csrc/partial_sample.cu`` (built by
 ``nvcc`` at first use, see :mod:`._build`) on the current stream without
 synchronising; for CPU tensors it runs the plain version.  A CUDA tensor
 never falls back to the plain version: the launch succeeds or the call
-raises.  ``partial_sample.launches`` and ``partial_project.launches``
-count the launches.
+raises.  ``partial_sample.launches``, ``partial_sample_ring.launches``
+and ``partial_project.launches`` count the launches,
+``partial_project.line_launches`` those of D2 on the line path.
 """
 
 from __future__ import annotations
@@ -60,15 +69,29 @@ SAMPLE_ARGTYPES = [
     ctypes.c_float,                                 # cval
     ctypes.c_void_p,                                # stream
 ]
+# partial_sample_ring_launch's parameters
+RING_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # slabs, firsts, count
+    ctypes.c_int,                                   # planes a slab
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,       # the true extent
+    ctypes.c_void_p,                                # matrix (host)
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # out
+    ctypes.c_int, ctypes.c_int,                     # order, border
+    ctypes.c_float,                                 # cval
+    ctypes.c_void_p,                                # stream
+]
 # partial_project_launch's parameters
 PROJECT_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # slab
     ctypes.c_void_p, ctypes.c_int, ctypes.c_float,  # rows, tilts, offset
     ctypes.c_int, ctypes.c_int, ctypes.c_int,       # the global shape
     ctypes.c_int,                                   # projection axis
+    ctypes.c_int,                                   # line axis, or 0
     ctypes.c_void_p,                                # out
     ctypes.c_void_p,                                # stream
 ]
+# the most slabs a ring launch takes (the kernel's kMaxRing)
+RING_CAPACITY = 32
 
 # output voxels of the plain projection's coordinates per chunk of planes
 _FORWARD_CHUNK_VOXELS = 1 << 22
@@ -79,6 +102,8 @@ def _library():
     lib = _build.load(NAME)
     lib.partial_sample_launch.argtypes = SAMPLE_ARGTYPES
     lib.partial_sample_launch.restype = ctypes.c_int
+    lib.partial_sample_ring_launch.argtypes = RING_ARGTYPES
+    lib.partial_sample_ring_launch.restype = ctypes.c_int
     lib.partial_project_launch.argtypes = PROJECT_ARGTYPES
     lib.partial_project_launch.restype = ctypes.c_int
     lib.partial_sample_error_string.argtypes = [ctypes.c_int]
@@ -196,6 +221,45 @@ def plain_partial_step(slab, coords, inside, z0: int, true_shape,
     return acc
 
 
+def _check_step(slabs, acc, matrix, true_shape, order: int, mode: str):
+    """D1's argument checks: ``slabs`` float32 contiguous 3-D tensors of
+    one shape on one device that hold planes of a volume of
+    ``true_shape``; ``acc`` (unless None) likewise a float32 contiguous
+    3-D tensor on their device; ``matrix`` (4, 4) float32.  Returns
+    ``true_shape`` as a tuple of ints and ``matrix`` as a numpy array."""
+    true_shape = tuple(int(s) for s in true_shape)
+    matrix = np.asarray(matrix)
+    tensors = slabs if acc is None else (*slabs, acc)
+    if not all(isinstance(t, torch.Tensor) for t in tensors):
+        raise TypeError("slab and acc must be torch tensors")
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise ValueError(f"slab and acc must be float32, got {t.dtype}")
+        if t.ndim != 3 or min(t.shape) < 1:
+            raise ValueError(f"slab and acc must be non-empty 3-D tensors, "
+                             f"got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError("slab and acc must be contiguous")
+        if t.device != tensors[0].device:
+            raise ValueError(f"slab and acc on {t.device} and "
+                             f"{tensors[0].device}")
+    for slab in slabs:
+        if len(true_shape) != 3 or tuple(slab.shape[1:]) != true_shape[1:]:
+            raise ValueError(f"the slab {tuple(slab.shape)} does not hold "
+                             f"planes of a volume of shape {true_shape}")
+        if slab.shape != slabs[0].shape:
+            raise ValueError(f"the ring's slabs differ in shape: "
+                             f"{[tuple(t.shape) for t in slabs]}")
+    if matrix.dtype != np.float32 or matrix.shape != (4, 4):
+        raise ValueError(f"matrix must be a (4, 4) float32 array, got "
+                         f"{matrix.dtype} {matrix.shape}")
+    if order not in _INTERPOLATION:
+        raise ValueError(f"order must be 1 or 3, got {order!r}")
+    if mode not in _MODES:
+        raise ValueError(f"mode must be one of {tuple(_MODES)}, got {mode!r}")
+    return true_shape, matrix
+
+
 def partial_sample(slab: torch.Tensor, matrix, z0: int, true_shape,
                    order: int, mode: str, acc: torch.Tensor,
                    last: bool = False, cval: float = 0.0) -> torch.Tensor:
@@ -209,32 +273,8 @@ def partial_sample(slab: torch.Tensor, matrix, z0: int, true_shape,
     ``mode``'s test take a sample; with ``last`` (the ring's last step) the
     others are set to ``cval``.  Returns ``acc``.  Each CUDA call is one
     launch, counted by ``partial_sample.launches``."""
-    true_shape = tuple(int(s) for s in true_shape)
-    matrix = np.asarray(matrix)
-    if not isinstance(slab, torch.Tensor) or not isinstance(acc,
-                                                            torch.Tensor):
-        raise TypeError("slab and acc must be torch tensors")
-    if slab.dtype != torch.float32 or acc.dtype != torch.float32:
-        raise ValueError(f"slab and acc must be float32, got {slab.dtype} "
-                         f"and {acc.dtype}")
-    if slab.ndim != 3 or acc.ndim != 3 or min(slab.shape) < 1 \
-            or min(acc.shape) < 1:
-        raise ValueError(f"slab and acc must be non-empty 3-D tensors, got "
-                         f"{tuple(slab.shape)} and {tuple(acc.shape)}")
-    if len(true_shape) != 3 or tuple(slab.shape[1:]) != true_shape[1:]:
-        raise ValueError(f"the slab {tuple(slab.shape)} does not hold planes "
-                         f"of a volume of shape {true_shape}")
-    if not slab.is_contiguous() or not acc.is_contiguous():
-        raise ValueError("slab and acc must be contiguous")
-    if slab.device != acc.device:
-        raise ValueError(f"slab on {slab.device}, acc on {acc.device}")
-    if matrix.dtype != np.float32 or matrix.shape != (4, 4):
-        raise ValueError(f"matrix must be a (4, 4) float32 array, got "
-                         f"{matrix.dtype} {matrix.shape}")
-    if order not in _INTERPOLATION:
-        raise ValueError(f"order must be 1 or 3, got {order!r}")
-    if mode not in _MODES:
-        raise ValueError(f"mode must be one of {tuple(_MODES)}, got {mode!r}")
+    true_shape, matrix = _check_step((slab,), acc, matrix, true_shape, order,
+                                     mode)
     if slab.device.type == "cpu":
         coords, inside = sample_frame(matrix, acc.shape, true_shape, mode,
                                       acc.device)
@@ -258,6 +298,76 @@ def partial_sample(slab: torch.Tensor, matrix, z0: int, true_shape,
 
 
 partial_sample.launches = 0
+
+
+def plain_partial_ring(slabs, z0s, matrix, true_shape, order: int, mode: str,
+                       out_shape, cval: float = 0.0) -> torch.Tensor:
+    """:func:`partial_sample_ring`'s plain version, on the slabs' device:
+    a zero accumulator of ``out_shape`` and one :func:`plain_partial_step`
+    for each slab in the given order, the last with ``cval``, at the
+    coordinates and inside test of :func:`sample_frame` formed once."""
+    device = slabs[0].device
+    acc = torch.zeros(tuple(out_shape), dtype=torch.float32, device=device)
+    frame = sample_frame(matrix, acc.shape, true_shape, mode, device)
+    for k, (slab, z0) in enumerate(zip(slabs, z0s)):
+        plain_partial_step(slab, *frame, int(z0), true_shape, order, mode,
+                           acc, k == len(slabs) - 1, cval)
+    return acc
+
+
+def partial_sample_ring(slabs, z0s, matrix, true_shape, order: int,
+                        mode: str, out_shape,
+                        cval: float = 0.0) -> torch.Tensor:
+    """A shard's whole ring stream in one call: the output slab of
+    ``out_shape`` (a new contiguous float32 tensor on the slabs' device)
+    resampled through ``matrix`` from ``slabs``, the shard's source slabs
+    in ring order (contiguous float32 tensors of one shape on one device,
+    slab ``k`` holding global planes ``[z0s[k], z0s[k] + planes)`` of a
+    volume of TRUE extent ``true_shape``), ``order``, ``mode`` and
+    ``cval`` as for :func:`partial_sample`.  Equal, bit for bit, to the
+    chain of :func:`partial_sample` steps over the same slabs in the same
+    order from a zero accumulator, the last with ``last=True``
+    (:func:`plain_partial_ring`).  On the card one launch, counted by
+    ``partial_sample_ring.launches``; it takes at most ``RING_CAPACITY``
+    slabs."""
+    slabs = tuple(slabs)
+    z0s = [int(z) for z in z0s]
+    out_shape = tuple(int(s) for s in out_shape)
+    if not slabs or len(z0s) != len(slabs):
+        raise ValueError(f"a ring needs at least one slab and a first plane "
+                         f"for each, got {len(slabs)} slabs and "
+                         f"{len(z0s)} planes")
+    if len(out_shape) != 3 or min(out_shape) < 1:
+        raise ValueError(f"out_shape must be 3 positive extents, got "
+                         f"{out_shape}")
+    true_shape, matrix = _check_step(slabs, None, matrix, true_shape, order,
+                                     mode)
+    device = slabs[0].device
+    if device.type == "cpu":
+        return plain_partial_ring(slabs, z0s, matrix, true_shape, order,
+                                  mode, out_shape, cval)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if len(slabs) > RING_CAPACITY:
+        raise ValueError(f"a ring launch takes at most {RING_CAPACITY} "
+                         f"slabs, got {len(slabs)}")
+    out = torch.empty(out_shape, dtype=torch.float32, device=device)
+    rows = np.ascontiguousarray(matrix[:3])
+    pointers = (ctypes.c_void_p * len(slabs))(*(t.data_ptr() for t in slabs))
+    firsts = (ctypes.c_int * len(slabs))(*z0s)
+    lib = _library()
+    with torch.cuda.device(device):
+        code = lib.partial_sample_ring_launch(
+            pointers, firsts, len(slabs), slabs[0].shape[0], *true_shape,
+            rows.ctypes.data, out.data_ptr(), *out_shape, order,
+            _MODES[mode], float(cval),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(code, "partial_sample_ring")
+    partial_sample_ring.launches += 1
+    return out
+
+
+partial_sample_ring.launches = 0
 
 
 # ------------------------------------------------------------------ D2
@@ -360,8 +470,33 @@ def sum_order_atol(n_planes: int, largest: float) -> float:
     return 2 * (n_planes - 1) * 2.0 ** -24 * largest
 
 
+def _leaves_alone(matrices, r: int) -> bool:
+    """Whether every matrix has row ``r`` equal to ``e_r`` and column
+    ``r`` of the other two rows 0, in exact float32 equality: a sample's
+    coordinate along ``r`` is then the output index itself and the other
+    two do not depend on it."""
+    m = np.asarray(matrices, np.float32).reshape(-1, 4, 4)
+    others = [a for a in range(3) if a != r]
+    return bool(np.all(m[:, r] == np.eye(4, dtype=np.float32)[r])
+                and np.all(m[:, others, r] == 0))
+
+
+def line_axis(matrices, projection_axis: int):
+    """The ray axis ``r`` (one of the two axes other than
+    ``projection_axis``) that every matrix leaves alone
+    (:func:`_leaves_alone`), the second ray axis tried first (the one
+    :func:`partial_project`'s line path takes); None where neither
+    qualifies."""
+    keep = [a for a in range(3) if a != projection_axis]
+    for r in keep[::-1]:
+        if _leaves_alone(matrices, r):
+            return r
+    return None
+
+
 def partial_project(x_slab: torch.Tensor, matrices, off: float, out_shape,
-                    projection_axis: int) -> torch.Tensor:
+                    projection_axis: int,
+                    _force_general: bool = False) -> torch.Tensor:
     """The slab's partial projections, (N, A, B) float32 on its device:
     ``x_slab`` (contiguous float32, (local, H, W), its first plane at
     global z ``off``) through ``matrices`` ((N, 4, 4) float32 numpy
@@ -369,7 +504,11 @@ def partial_project(x_slab: torch.Tensor, matrices, off: float, out_shape,
     ``projection_axis`` (0-2); A and B are the extents of the other two
     axes, in order.  On the card one launch for all tilts, counted by
     ``partial_project.launches``; it sums each ray's planes in order, the
-    plain version in chunks, within :func:`sum_order_atol`."""
+    plain version in chunks, within :func:`sum_order_atol`.  Where
+    :func:`line_axis` gives the second ray axis the launch takes the line
+    path (also counted by ``partial_project.line_launches``), equal to the
+    general kernel bit for bit on a finite slab; ``_force_general`` keeps
+    it on the general kernel, the line path's reference."""
     out_shape = tuple(int(s) for s in out_shape)
     matrices = np.asarray(matrices)
     if not isinstance(x_slab, torch.Tensor):
@@ -400,6 +539,8 @@ def partial_project(x_slab: torch.Tensor, matrices, off: float, out_shape,
                       device=x_slab.device)
     if len(matrices) == 0:
         return out
+    line = keep[1] if not _force_general and _leaves_alone(
+        matrices, keep[1]) else 0
     lib = _library()
     with torch.cuda.device(x_slab.device):
         # the rows go up through pinned memory without blocking, in stream
@@ -408,11 +549,13 @@ def partial_project(x_slab: torch.Tensor, matrices, off: float, out_shape,
             .pin_memory().to(x_slab.device, non_blocking=True)
         code = lib.partial_project_launch(
             x_slab.data_ptr(), *x_slab.shape, rows.data_ptr(), len(matrices),
-            float(off), *out_shape, projection_axis, out.data_ptr(),
+            float(off), *out_shape, projection_axis, line, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(code, "partial_project")
     partial_project.launches += 1
+    partial_project.line_launches += bool(line)
     return out
 
 
 partial_project.launches = 0
+partial_project.line_launches = 0

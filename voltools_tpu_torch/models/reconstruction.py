@@ -324,7 +324,9 @@ def _sirt_mesh(projs, matrices, minv, out_shape, iterations, relax,
     * **Forward** ``A x``: a trilinear sample is linear in the volume under
       per-tap zero extension, so each shard projects its own slab
       (:func:`~..kernels.partial_sample.partial_project`, one launch of
-      D2) and the partial projections are summed
+      D2, on its line path where the tilts leave the rays' second axis
+      alone, as a single-axis series about an axis of the projection
+      plane does) and the partial projections are summed
       over the shards (``psum``); a z tap across a slab boundary is split
       between its two owners with its exact weights.
     * **Adjoint** ``A^T r``: each shard back-projects the (replicated,

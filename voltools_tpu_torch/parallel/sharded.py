@@ -29,9 +29,12 @@ could not (NCCL takes one rank per device).
   on any device), or gather the volume on each device first
   (``'gather'``).  The halo and gather bodies launch the planner's CUDA
   kernel per shard (:func:`..transforms._resample`), the plain version on
-  the CPU; the stream body launches the kernel D1 once per shard and slab
-  (:func:`..kernels.partial_sample.partial_sample`), where the JAX package
-  leaves the ring's samples to XLA.
+  the CPU; the stream body launches the kernel D1, where the JAX package
+  leaves the ring's samples to XLA: once per shard over its whole ring
+  where the ring's slabs already lie on the shard's device
+  (:func:`..kernels.partial_sample.partial_sample_ring`), else once per
+  shard and slab as they come round
+  (:func:`..kernels.partial_sample.partial_sample`).
 * :func:`sharded_affine_batch` -- N matrices applied data-parallel: the
   volume is replicated once per distinct device and each shard resamples
   its share of the matrices in one launch.
@@ -49,8 +52,9 @@ import numpy as np
 import torch
 
 from ..kernels.layout import pitched, pitched_empty
-from ..kernels.partial_sample import (partial_sample, plain_partial_step,
-                                      sample_frame)
+from ..kernels.partial_sample import (RING_CAPACITY, partial_sample,
+                                      partial_sample_ring,
+                                      plain_partial_step, sample_frame)
 from ..ops.interpolation import (AVAILABLE_INTERPOLATIONS, MODES,
                                  needs_prefilter, spline_order)
 from ..ops.prefilter import (_FIR_HALF_WIDTH, POLE, bspline_prefilter,
@@ -435,23 +439,34 @@ class ShardedVolume:
     def _stream_body(self, matrix: np.ndarray, plain: bool = False):
         """Global transform, gather-free (``sharded.py:408-450``): each
         shard adds the per-tap partial samples of the source slabs into its
-        output slab as they come round the ring, one step of
-        :func:`..kernels.partial_sample.partial_sample` a slab (a launch of
-        the kernel D1 on the card), the last step applying the whole-sample
-        mask in the global frame.  Per shard: the output slab and the slab
-        received; never the full volume.  On CPU shards, and with
-        ``plain`` on any device, the steps are the plain version, each
-        shard's coordinates and inside test formed once: the reference the
-        kernel is held against."""
+        output slab as they come round the ring, the last applying the
+        whole-sample mask in the global frame.  Where every slab of a
+        shard's ring already lies on its device (the ring shift would hand
+        back the slab itself, as on a mesh that repeats one card), the
+        whole ring is one call of
+        :func:`..kernels.partial_sample.partial_sample_ring` (a launch of
+        the kernel D1 a shard on the card); else one step of
+        :func:`..kernels.partial_sample.partial_sample` a slab (a launch a
+        step).  Per shard: the output slab and the slab received; never
+        the full volume.  With ``plain``, on any device, the steps are the
+        plain version, each shard's coordinates and inside test formed
+        once: the reference the kernel is held against."""
         n, local, shape = self.mesh.size, self._local, self.shape
         order = spline_order(self.interpolation)
         out_shape = (local,) + shape[1:]
         outs = []
         for i, dev in enumerate(self.mesh.devices):
             m_dev = _shifted(matrix, np.float32(i * local))
+            ring = [(i - k) % n for k in range(n)]
+            if not plain and n <= RING_CAPACITY and all(
+                    self.data[j].device == dev for j in ring):
+                outs.append(partial_sample_ring(
+                    [self.data[j] for j in ring], [j * local for j in ring],
+                    m_dev, shape, order, self.mode, out_shape, self.cval))
+                continue
             acc = torch.zeros(out_shape, dtype=torch.float32, device=dev)
             frame = (sample_frame(m_dev, out_shape, shape, self.mode, dev)
-                     if plain or acc.device.type == "cpu" else None)
+                     if plain else None)
             src, src_idx = self.data[i], i
             for k in range(n):
                 z0, last = src_idx * local, k == n - 1
