@@ -23,6 +23,8 @@ import threading
 import time
 from pathlib import Path
 
+from ..utils import trace
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -118,9 +120,14 @@ def build(name: str, defines=None) -> Path:
 def load(name: str, defines=None) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` built with ``defines``,
     built on first use."""
-    with _LOCK:
+    span = trace.span("build")
+    with span, _LOCK:
         lib = _LOADED.get(name)
+        built = False
         if lib is None:
+            before = BUILD_LOG.get(name)
             lib = ctypes.CDLL(str(build(name, defines)))
             _LOADED[name] = lib
+            built = BUILD_LOG.get(name) is not before
+        span.note(name=name, built=built)
         return lib

@@ -40,6 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import _build
 from .affine_resample import _device_index
 from .layout import padded_width, row_pitch, tma_ready
@@ -167,7 +168,11 @@ def _tma_rows(projs: torch.Tensor) -> torch.Tensor:
     n, h, w = projs.shape
     out = torch.empty((n, h, padded_width(w)), dtype=projs.dtype,
                       device=projs.device)[..., :w]
-    return out.copy_(projs)
+    if trace.ON:
+        trace.count("pitched_copies")
+        trace.count("pitched_copy_bytes", out.untyped_storage().nbytes())
+    with trace.device_work(projs):
+        return out.copy_(projs)
 
 
 def window_misses(device="cuda") -> int:
@@ -343,22 +348,27 @@ def backproject(projs: torch.Tensor, minv, keep, out_shape,
         return plain_backproject(projs, minv, keep, out_shape, rowgather)
     if projs.device.type != "cuda":
         raise ValueError(f"unsupported device {projs.device}")
-    table = coefficients(minv, keep, rowgather)
-    tile = RowTile(0, 0, 0)   # the general path reads none
+    with trace.span("kernel_c.table"):
+        table = coefficients(minv, keep, rowgather)
+        tile = RowTile(0, 0, 0)   # the general path reads none
+        if rowgather:
+            dep1 = 1 if keep[1] == 2 else 2
+            tile = rowgather_tile(table, out_shape[0], out_shape[dep1],
+                                  projs.shape[1])
+        # the table goes up through pinned memory without blocking, in
+        # stream order, so the call does not wait for the device
+        host = torch.from_numpy(table).pin_memory()
+        if trace.ON:
+            trace.count("upload_bytes", table.nbytes)
+        with trace.device_work(projs):
+            coef = host.to(projs.device, non_blocking=True)
     if rowgather:
-        dep1 = 1 if keep[1] == 2 else 2
-        tile = rowgather_tile(table, out_shape[0], out_shape[dep1],
-                              projs.shape[1])
         projs = _tma_rows(projs)
     out = torch.empty(out_shape, dtype=torch.float32, device=projs.device)
     lib = _library()
     # the launch goes to the current device; make it the projections' for
     # the call only, so the caller's current device is left as it was
     with torch.cuda.device(projs.device):
-        # the table goes up through pinned memory without blocking, in
-        # stream order, so the call does not wait for the device
-        coef = torch.from_numpy(table).pin_memory().to(projs.device,
-                                                       non_blocking=True)
         code = lib.backproject_launch(
             projs.data_ptr(), *projs.shape, row_pitch(projs),
             coef.data_ptr(), int(bool(rowgather)), keep[1], out.data_ptr(),

@@ -25,7 +25,7 @@ from ..ops.interpolation import (AVAILABLE_INTERPOLATIONS, MODES,
 from ..ops.prefilter import bspline_prefilter
 from ..ops.sampling import affine_sample
 from ..transforms import _as_tensor, _device, _resample
-from ..utils import transform_matrix
+from ..utils import trace, transform_matrix
 from ..volume import StaticVolume
 
 
@@ -59,7 +59,8 @@ def project_stack(volume: torch.Tensor, matrices: np.ndarray,
         ms = matrices[pos:pos + chunk]
         rotated = _resample(volume, ms, interpolation, mode, 0.0,
                             out=stack[:len(ms)])
-        torch.sum(rotated, dim=axis + 1, out=result[pos:pos + len(ms)])
+        with trace.span("project.sum", device=volume):
+            torch.sum(rotated, dim=axis + 1, out=result[pos:pos + len(ms)])
     return result
 
 

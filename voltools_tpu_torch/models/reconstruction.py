@@ -40,6 +40,7 @@ from ..kernels.partial_sample import (  # noqa: F401 (re-exported)
     _trilinear3d_pertap, partial_project, plain_partial_project)
 from ..parallel.sharded import _crop, _host, _psum, _ring_shift, _shifted
 from ..transforms import _as_tensor, _device, _finish
+from ..utils import trace
 from .projections import _norm_axis, plain_project_stack, project_stack
 
 __all__ = ["ramp_filter", "sirt_reconstruct", "wbp_reconstruct"]
@@ -55,16 +56,22 @@ def ramp_filter(projections, axis: int = -1, window: str = "ramlak"):
         raise ValueError(f"unknown window {window!r}")
     projections = torch.as_tensor(projections, dtype=torch.float32)
     n = projections.shape[axis]
-    freqs = torch.fft.fftfreq(n, dtype=torch.float32,
-                              device=projections.device)
-    ramp = freqs.abs()
-    if window == "hamming":
-        ramp = ramp * (0.54 + 0.46 * torch.cos(2.0 * math.pi * freqs))
+    # each step apart for the tracer: the host's dispatch of the small
+    # first ones leaves the device idle between them
+    with trace.device_work(projections):
+        freqs = torch.fft.fftfreq(n, dtype=torch.float32,
+                                  device=projections.device)
+        ramp = freqs.abs()
+        if window == "hamming":
+            ramp = ramp * (0.54 + 0.46 * torch.cos(2.0 * math.pi * freqs))
     shape = [1] * projections.ndim
     shape[axis] = n
-    f = torch.fft.fft(projections, dim=axis)
-    out = torch.fft.ifft(f * ramp.reshape(shape), dim=axis)
-    return out.real.to(torch.float32).contiguous()
+    with trace.device_work(projections):
+        f = torch.fft.fft(projections, dim=axis)
+    with trace.device_work(projections):
+        out = torch.fft.ifft(f * ramp.reshape(shape), dim=axis)
+    with trace.device_work(projections):
+        return out.real.to(torch.float32).contiguous()
 
 
 def _result_out(result: torch.Tensor, output):
@@ -110,7 +117,8 @@ def _make_adjoint(minv, keep, out_shape, proj_shape,
     run = plain_backproject if _plain else backproject
 
     def adjoint(projs, minvs):
-        return run(projs.contiguous(), minvs, keep, out_shape, rowgather)
+        with trace.span("kernel_c", device=projs):
+            return run(projs.contiguous(), minvs, keep, out_shape, rowgather)
 
     return adjoint
 
@@ -132,6 +140,24 @@ def _validate(projections, matrices, out_shape, device, projection_axis):
     keep = [a for a in range(3) if a != axis]
     minv = np.stack([np.linalg.inv(m) for m in matrices]).astype(np.float32)
     return projs, matrices, out_shape, axis, keep, minv
+
+
+def _filter_axis(filter_axis, keep, minv):
+    """The projection axis (-2 rows / -1 cols) the ramp filter acts on.
+    'auto': a projection axis whose coordinate map is the identity row in
+    every M^-1 is the tilt axis, so the other one is filtered; ambiguous
+    geometries default to the minor axis."""
+    if filter_axis == "auto":
+        filter_axis = -1
+        for pos, a in enumerate(keep):
+            ident = np.zeros(4, np.float32)
+            ident[a] = 1.0
+            if np.abs(minv[:, a, :3] - ident[:3][None]).max() < 1e-5:
+                filter_axis = -1 if pos == 0 else -2
+                break
+    if filter_axis not in (-1, -2):
+        raise ValueError("filter_axis must be -1, -2, or 'auto'")
+    return filter_axis
 
 
 def wbp_reconstruct(projections, matrices, out_shape,
@@ -174,69 +200,65 @@ def wbp_reconstruct(projections, matrices, out_shape,
     ``_plain_adjoint`` runs the back-projection through the kernel's plain
     version on the same device: the reference the kernel path is held
     against."""
-    if mesh is not None:
-        if mesh_shard not in ("tilts", "volume"):
-            raise ValueError("mesh_shard must be 'tilts' or 'volume'")
-        device = str(mesh.devices[0])
-    projs, matrices, out_shape, axis, keep, minv = _validate(
-        projections, matrices, out_shape, device, projection_axis)
-    n_tilt = projs.shape[0]
-    proj_shape = tuple(projs.shape[1:])
+    with trace.span("api.wbp"):
+        if mesh is not None:
+            if mesh_shard not in ("tilts", "volume"):
+                raise ValueError("mesh_shard must be 'tilts' or 'volume'")
+            device = str(mesh.devices[0])
+        with trace.span("wbp.validate"):
+            projs, matrices, out_shape, axis, keep, minv = _validate(
+                projections, matrices, out_shape, device, projection_axis)
+            filter_axis = _filter_axis(filter_axis, keep, minv)
+        n_tilt = projs.shape[0]
+        proj_shape = tuple(projs.shape[1:])
 
-    if filter_axis == "auto":
-        # a projection axis whose coordinate map is the identity row in
-        # every M^-1 is the tilt axis: filter the other one.  Ambiguous
-        # geometries default to the minor axis.
-        filter_axis = -1
-        for pos, a in enumerate(keep):
-            ident = np.zeros(4, np.float32)
-            ident[a] = 1.0
-            if np.abs(minv[:, a, :3] - ident[:3][None]).max() < 1e-5:
-                filter_axis = -1 if pos == 0 else -2
-                break
-    if filter_axis not in (-1, -2):
-        raise ValueError("filter_axis must be -1, -2, or 'auto'")
+        def filtered(p):
+            if filter_window is None:
+                return p
+            return ramp_filter(p, axis=filter_axis, window=filter_window)
 
-    def filtered(p):
-        if filter_window is None:
-            return p
-        return ramp_filter(p, axis=filter_axis, window=filter_window)
-
-    # Riemann sum of the FBP integral over [0, pi): d_theta = pi / N
-    scale = math.pi / n_tilt
-    if mesh is None:
+        # Riemann sum of the FBP integral over [0, pi): d_theta = pi / N
+        scale = math.pi / n_tilt
+        if mesh is None:
+            with trace.span("wbp.plan"):
+                adjoint = _make_adjoint(minv, keep, out_shape, proj_shape,
+                                        _plain=_plain_adjoint)
+            with trace.span("wbp.filter"):
+                projs = filtered(projs)
+            result = adjoint(projs, minv)
+            with trace.span("wbp.scale", device=projs):
+                result = result * scale
+            return _result_out(result, output)
+        if mesh_shard == "volume":
+            # each shard its z slab of the output, from the replicated
+            # (small) projections
+            nd = mesh.size
+            local = -(-out_shape[0] // nd)
+            adjoint_s = _make_adjoint(minv, keep, (local,) + out_shape[1:],
+                                      proj_shape, _plain=_plain_adjoint)
+            projs = filtered(projs)
+            replicas = {d: _ring_shift(projs, d) for d in mesh.distinct}
+            slabs = [adjoint_s(replicas[d],
+                               _shifted(minv, np.float32(i * local)))
+                     * scale for i, d in enumerate(mesh.devices)]
+            return _mesh_out(slabs, out_shape[0], output)
+        # each shard a share of the tilts: zero projections pad the batch to
+        # divide the mesh (they add nothing; the scale counts the true tilts)
         adjoint = _make_adjoint(minv, keep, out_shape, proj_shape,
                                 _plain=_plain_adjoint)
-        return _result_out(adjoint(filtered(projs), minv) * scale, output)
-    if mesh_shard == "volume":
-        # each shard its z slab of the output, from the replicated
-        # (small) projections
         nd = mesh.size
-        local = -(-out_shape[0] // nd)
-        adjoint_s = _make_adjoint(minv, keep, (local,) + out_shape[1:],
-                                  proj_shape, _plain=_plain_adjoint)
-        projs = filtered(projs)
-        replicas = {d: _ring_shift(projs, d) for d in mesh.distinct}
-        slabs = [adjoint_s(replicas[d], _shifted(minv, np.float32(i * local)))
-                 * scale for i, d in enumerate(mesh.devices)]
-        return _mesh_out(slabs, out_shape[0], output)
-    # each shard a share of the tilts: zero projections pad the batch to
-    # divide the mesh (they add nothing; the scale counts the true tilts)
-    adjoint = _make_adjoint(minv, keep, out_shape, proj_shape,
-                            _plain=_plain_adjoint)
-    nd = mesh.size
-    padn = (-n_tilt) % nd
-    if padn:
-        projs = torch.cat([projs, projs.new_zeros((padn,) + proj_shape)])
-        minv = np.concatenate(
-            [minv, np.repeat(np.eye(4, dtype=np.float32)[None], padn, 0)])
-    per = (n_tilt + padn) // nd
-    partials = [adjoint(filtered(_ring_shift(projs[i * per:(i + 1) * per],
-                                             d)),
-                        minv[i * per:(i + 1) * per]) * scale
-                for i, d in enumerate(mesh.devices)]
-    first = mesh.devices[0]
-    return _result_out(_psum(partials, [first])[first], output)
+        padn = (-n_tilt) % nd
+        if padn:
+            projs = torch.cat([projs, projs.new_zeros((padn,) + proj_shape)])
+            minv = np.concatenate(
+                [minv, np.repeat(np.eye(4, dtype=np.float32)[None], padn, 0)])
+        per = (n_tilt + padn) // nd
+        partials = [adjoint(filtered(_ring_shift(
+                        projs[i * per:(i + 1) * per], d)),
+                            minv[i * per:(i + 1) * per]) * scale
+                    for i, d in enumerate(mesh.devices)]
+        first = mesh.devices[0]
+        return _result_out(_psum(partials, [first])[first], output)
 
 
 def sirt_reconstruct(projections, matrices, out_shape,
@@ -270,44 +292,66 @@ def sirt_reconstruct(projections, matrices, out_shape,
     version on the same device (with ``mesh``, the kernel D2's), and
     ``_plain_adjoint`` the back-projection through the kernel C's: the
     references the kernel path is held against."""
-    if mesh is not None:
-        device = str(mesh.devices[0])
-    projs, matrices, out_shape, axis, keep, minv = _validate(
-        projections, matrices, out_shape, device, projection_axis)
-    if initial is not None:
-        initial = _as_tensor(initial, projs.device)
-        if tuple(initial.shape) != out_shape:
-            raise ValueError(
-                f"initial shape {tuple(initial.shape)} does not match "
-                f"out_shape {out_shape}")
-    if mesh is not None:
-        return _sirt_mesh(projs, matrices, minv, out_shape, iterations,
-                          relax, axis, nonneg, initial, mesh, output,
-                          _plain_forward, _plain_adjoint)
-    dev = projs.device
-    sweep = plain_project_stack if _plain_forward else project_stack
+    with trace.span("api.sirt"):
+        if mesh is not None:
+            device = str(mesh.devices[0])
+        with trace.span("sirt.validate"):
+            projs, matrices, out_shape, axis, keep, minv = _validate(
+                projections, matrices, out_shape, device, projection_axis)
+            if initial is not None:
+                initial = _as_tensor(initial, projs.device)
+                if tuple(initial.shape) != out_shape:
+                    raise ValueError(
+                        f"initial shape {tuple(initial.shape)} does not "
+                        f"match out_shape {out_shape}")
+        if mesh is not None:
+            return _sirt_mesh(projs, matrices, minv, out_shape, iterations,
+                              relax, axis, nonneg, initial, mesh, output,
+                              _plain_forward, _plain_adjoint)
+        dev = projs.device
+        sweep = plain_project_stack if _plain_forward else project_stack
 
-    def forward(vol):
-        return sweep(vol, matrices, "linear", "constant", axis)
+        def forward(vol):
+            return sweep(vol, matrices, "linear", "constant", axis)
 
-    adjoint = _make_adjoint(minv, keep, out_shape, tuple(projs.shape[1:]),
-                            _plain=_plain_adjoint)
-    eps = 1e-6
-    row_sum = forward(pitched_empty(out_shape, device=dev).fill_(1.0))
-    col_sum = adjoint(torch.ones_like(projs), minv)
-    rinv = torch.where(row_sum > eps, 1.0 / row_sum, 0.0)
-    cinv = torch.where(col_sum > eps, 1.0 / col_sum, 0.0)
+        adjoint = _make_adjoint(minv, keep, out_shape,
+                                tuple(projs.shape[1:]), _plain=_plain_adjoint)
+        eps = 1e-6
+        with trace.span("sirt.normalise"):
+            with trace.device_work(dev):
+                ones = pitched_empty(out_shape, device=dev).fill_(1.0)
+            row_sum = forward(ones)
+            with trace.device_work(dev):
+                ones = torch.ones_like(projs)
+            col_sum = adjoint(ones, minv)
+            del ones
+            with trace.device_work(dev):
+                rinv = torch.where(row_sum > eps, 1.0 / row_sum, 0.0)
+                cinv = torch.where(col_sum > eps, 1.0 / col_sum, 0.0)
 
-    if initial is None:
-        x = pitched_empty(out_shape, device=dev).zero_()
-    else:
-        x = pitched(initial, copy=True)
-    for _ in range(iterations):
-        resid = (projs - forward(x)) * rinv
-        x += relax * cinv * adjoint(resid, minv)
-        if nonneg:   # projected SIRT: density is non-negative
-            x.clamp_min_(0.0)
-    return _result_out(x.contiguous(), output)
+        with trace.device_work(dev):
+            if initial is None:
+                x = pitched_empty(out_shape, device=dev).zero_()
+            else:
+                x = pitched(initial, copy=True)
+        for _ in range(iterations):
+            with trace.span("sirt.iteration"):
+                with trace.span("sirt.forward"):
+                    fwd = forward(x)
+                # fwd and back are freed as soon as they are used, as the
+                # temporaries of one expression were: the next forward's
+                # peak is the same
+                with trace.span("sirt.update", device=dev):
+                    resid = (projs - fwd) * rinv
+                    del fwd
+                with trace.span("sirt.adjoint"):
+                    back = adjoint(resid, minv)
+                with trace.span("sirt.update", device=dev):
+                    x += relax * cinv * back
+                    del back
+                    if nonneg:   # projected SIRT: density is non-negative
+                        x.clamp_min_(0.0)
+        return _result_out(x.contiguous(), output)
 
 
 # the volume-sharded forward's step before the kernel D took it, by its old

@@ -40,7 +40,7 @@ import torch
 from . import native
 from .kernels.affine_resample import affine_resample
 from .kernels.affine_slab import affine_slab
-from .kernels.layout import pitched
+from .kernels.layout import pitched, tma_ready
 from .kernels.planner import route, walk_patch
 from .ops.interpolation import (AVAILABLE_INTERPOLATIONS, MODES,
                                 needs_prefilter, spline_order)
@@ -56,6 +56,7 @@ from .utils import (
     transform_matrix,
     translation_matrix,
 )
+from .utils import trace
 
 Triple = Union[float, Tuple[float, float, float], np.ndarray]
 
@@ -67,6 +68,10 @@ class PerformanceFallbackWarning(RuntimeWarning):
 
 
 _LAST_DISPATCH = threading.local()
+# the route counters' names by (slab kernel?, rule), made once: a call
+# formats no string
+_ROUTE_COUNTERS = {(slab, rule): f"route.kernel_{'b' if slab else 'a'}.{rule}"
+                   for slab in (False, True) for rule in ("box", "speed")}
 
 
 def last_dispatch():
@@ -79,7 +84,19 @@ def last_dispatch():
     the planner's rule that picked the kernel (the box rule: the slab kernel
     cannot take the call; the speed rule: which kernel is faster for it),
     and ``reason`` names the kernel and the rule's numbers."""
-    return getattr(_LAST_DISPATCH, "info", None)
+    pieces = getattr(_LAST_DISPATCH, "pieces", None)
+    if pieces is None:
+        return None
+    cuda, plan, rule, why, patch = pieces
+    kernel = ("slab kernel (affine_slab)" if plan is not None else
+              f"walk kernel (affine_resample, warp patch {patch})")
+    kernel = f"{kernel} by the {rule} rule: {why}"
+    if cuda:
+        return dict(impl="cuda", variant=plan, rule=rule,
+                    reason=f"CUDA {kernel}")
+    return dict(impl="torch", variant=plan, rule=rule,
+                reason=f"plain torch sampler (device='cpu') in place of the "
+                       f"{kernel}")
 
 
 def _as_triple(value):
@@ -149,29 +166,36 @@ def _resample(vol: torch.Tensor, matrices: np.ndarray, interpolation: str,
     inside the call."""
     out_shape = tuple(vol.shape) if out_shape is None else tuple(out_shape)
     order = spline_order(interpolation)
-    plan, rule, why = route(matrices, vol.shape, interpolation, mode,
-                            out_shape)
-    mats = _device_matrices(matrices, vol.device)
-    if plan is not None:
-        if vol.device.type == "cuda":
-            vol = pitched(vol)
-        result = affine_slab(vol, mats, order, mode, cval, out_shape, out,
-                             plan=plan)
-        kernel = "slab kernel (affine_slab)"
-    else:
-        patch = walk_patch(matrices)
-        result = affine_resample(vol, mats, order, mode, cval, out_shape,
-                                 out, patch=patch)
-        kernel = f"walk kernel (affine_resample, warp patch {patch})"
-    kernel = f"{kernel} by the {rule} rule: {why}"
-    if vol.device.type == "cuda":
-        _LAST_DISPATCH.info = dict(impl="cuda", variant=plan, rule=rule,
-                                   reason=f"CUDA {kernel}")
-    else:
-        _LAST_DISPATCH.info = dict(
-            impl="torch", variant=plan, rule=rule,
-            reason=f"plain torch sampler (device='cpu') in place of the "
-                   f"{kernel}")
+    with trace.span("resample"):
+        with trace.span("resample.route"):
+            plan, rule, why = route(matrices, vol.shape, interpolation, mode,
+                                    out_shape)
+        with trace.span("resample.upload", device=vol):
+            mats = _device_matrices(matrices, vol.device)
+        cuda = vol.device.type == "cuda"
+        if trace.ON:
+            trace.count(_ROUTE_COUNTERS[plan is not None, rule])
+            if cuda:
+                trace.count("upload_bytes", mats.nbytes)
+        patch = None
+        if plan is not None:
+            if cuda and not tma_ready(vol):
+                with trace.span("resample.pitch", device=vol):
+                    vol = pitched(vol)
+                if trace.ON:
+                    trace.count("pitched_copies")
+                    trace.count("pitched_copy_bytes",
+                                vol.untyped_storage().nbytes())
+            with trace.span("kernel_b", device=vol):
+                result = affine_slab(vol, mats, order, mode, cval, out_shape,
+                                     out, plan=plan)
+        else:
+            with trace.span("resample.walk_patch"):
+                patch = walk_patch(matrices)
+            with trace.span("kernel_a", device=vol):
+                result = affine_resample(vol, mats, order, mode, cval,
+                                         out_shape, out, patch=patch)
+    _LAST_DISPATCH.pieces = (cuda, plan, rule, why, patch)
     return result
 
 

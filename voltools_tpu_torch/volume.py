@@ -43,6 +43,7 @@ from .utils import (
     transform_matrix,
     translation_matrix,
 )
+from .utils import trace
 
 Triple = Union[float, Tuple[float, float, float], np.ndarray]
 
@@ -127,24 +128,25 @@ class StaticVolume:
         float32 tensor of the volume's shape on the volume's device, which
         is written in place and returned: chain ``sv.affine(m, output=out)``
         for a sweep that allocates nothing."""
-        if not isinstance(output, torch.Tensor):
-            _check_output(output, self.device)
-        if isinstance(output, np.ndarray):
-            _check_shape(output.shape, self.shape)
-        transform_m = np.asarray(transform_m, dtype=np.float32)
-        timer = ProfileTimer(self._dev) if profile else None
-        if timer:
-            timer.__enter__()
-        try:
-            if isinstance(output, torch.Tensor):
-                return self._resample(transform_m, out=output)
-            result = self._resample(transform_m)
-            if isinstance(output, str):
-                return result
-            return _finish(result.cpu().numpy(), output)
-        finally:
+        with trace.span("api.affine"):
+            if not isinstance(output, torch.Tensor):
+                _check_output(output, self.device)
+            if isinstance(output, np.ndarray):
+                _check_shape(output.shape, self.shape)
+            transform_m = np.asarray(transform_m, dtype=np.float32)
+            timer = ProfileTimer(self._dev) if profile else None
             if timer:
-                timer.__exit__(None, None, None)
+                timer.__enter__()
+            try:
+                if isinstance(output, torch.Tensor):
+                    return self._resample(transform_m, out=output)
+                result = self._resample(transform_m)
+                if isinstance(output, str):
+                    return result
+                return _finish(result.cpu().numpy(), output)
+            finally:
+                if timer:
+                    timer.__exit__(None, None, None)
 
     def affine_batch(self, transform_ms: np.ndarray, profile: bool = False,
                      output=None):
