@@ -74,6 +74,17 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    series (both on the line path, each also against the general kernel,
    ``_force_general=True``, bit for bit), random rotations along axes 1
    and 2 (the general kernel);
+4d. parity_rows, rows_times -- B's row path (trilinear launches whose
+   every matrix leaves the row axis alone) against B's general kernel
+   (``_force_general=True``), bit for bit, and against the plain version
+   (ATOL), in both item orders: the reconstruction's 41-tilt series at
+   250^3 in its launches (34 and 7) and at the tomogram's (256, 512,
+   512) in the forward's launches of 8, both edges and cvals at 250^3,
+   an odd shape (37, 50, 61) into another output shape; ``row_launches``
+   one a launch; then the device time per tilt of the row path in both
+   orders beside the general kernel's and the launches' least time (the
+   source read once a launch, every output written once) at 250^3 and at
+   the tomogram's shape;
 5. main   -- the main path at 250^3 float32, through the public API:
    ``StaticVolume`` 'linear' and 'filt_bspline' on 'cuda', ``.affine`` over
    16 random rotations and ``.affine_batch`` of the same 16, and the
@@ -778,6 +789,128 @@ def profiler_view(torch, fn):
             "raw_device_events": None if raw is None else dict(raw)}
 
 
+def rows_phase(torch, np, dev):
+    """Phase 4d: B's row path against its general kernel, bit for bit, and
+    against the plain version, in both item orders; then its device time
+    per tilt beside the general kernel's and the least time, at 250^3 and
+    at the tomogram's shape.  Returns the times for the kernels' line."""
+    import voltools_tpu_torch as vt
+    from voltools_tpu_torch.kernels import affine_slab as S
+    from voltools_tpu_torch.kernels.layout import pitched, row_pitch
+    from voltools_tpu_torch.kernels.planner import route
+    from voltools_tpu_torch.ops.sampling import affine_sample
+    from voltools_tpu_torch.utils import transform_matrix
+    slab = S.affine_slab
+    # the C entry's item_order: x segment first, or matrix first
+    orders = {"segments": 1, "matrices": 0}
+    rows = []
+
+    def in_order(vol, ms_dev, order, mode="constant", cval=0.0,
+                 out_shape=None, out=None):
+        """The row path's launch through its C entry, its CTAs numbered
+        in ``order`` in place of the one the launch would pick."""
+        out_shape = tuple(out_shape or vol.shape)
+        if out is None:
+            out = torch.empty((len(ms_dev),) + out_shape, device=dev)
+        code = S._library().affine_rows_launch(
+            vol.data_ptr(), *vol.shape, row_pitch(vol), ms_dev.data_ptr(),
+            len(ms_dev), out.data_ptr(), *out_shape, S._MODES[mode],
+            float(cval), orders[order], S._counter(dev).data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        assert code == 0, (order, code)
+        return out
+
+    def check(name, vol, ms, mode="constant", cval=0.0, out_shape=None):
+        shape = tuple(vol.shape)
+        out_shape = tuple(out_shape or shape)
+        plan = route(ms, shape, "linear", mode, out_shape).plan
+        assert plan is not None and plan.rows, (name, "not a row launch")
+        ms_dev = torch.from_numpy(ms).to(dev)
+        want = slab(vol, ms_dev, 1, mode, cval, out_shape, plan=plan,
+                    _force_general=True)
+        worst = 0.0
+        before = (slab.launches, slab.row_launches)
+        got = slab(vol, ms_dev, 1, mode, cval, out_shape, plan=plan)
+        assert (slab.launches - before[0],
+                slab.row_launches - before[1]) == (1, 1), name
+        assert torch.equal(got, want), (name, mode, cval)
+        del got
+        for order in orders:
+            got = in_order(vol, ms_dev, order, mode, cval, out_shape)
+            assert torch.equal(got, want), (name, order, mode, cval)
+            del got
+        for i in (0, len(ms) // 2, len(ms) - 1):
+            plain = affine_sample(vol, ms_dev[i], "linear", mode, cval,
+                                  out_shape=out_shape, prefiltered=True)
+            worst = max(worst, float((want[i] - plain).abs().max()))
+            assert worst <= ATOL, (name, i, worst)
+        rows.append({"case": name, "shape": list(shape),
+                     "out_shape": list(out_shape), "mode": mode,
+                     "cval": cval, "tilts": len(ms),
+                     "equal_to_general": True, "max_abs_err_plain": worst})
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    times = {}
+    for shape in ((SIZE,) * 3, TOMO_SHAPE):
+        vol = pitched(torch.rand(shape, generator=gen, device=dev))
+        ms = tilt_series(np, transform_matrix, shape, RECON_TILT_AXIS)
+        chunk = vt.StaticVolume.batch_chunk(shape)
+        launches = [ms[p:p + chunk] for p in range(0, len(ms), chunk)
+                    if len(ms[p:p + chunk]) >= 2]
+        cases = [("constant", 0.0)]
+        if shape != TOMO_SHAPE:
+            cases += [("constant", 1.5), ("border", 0.0), ("border", 1.5)]
+        for mode, cval in cases:
+            for k, c in enumerate(launches):
+                check(f"recon_{shape[0]}_launch_{k}", vol, c, mode, cval)
+        # the times: every launch of the forward, back to back
+        plans = [route(c, shape, "linear").plan for c in launches]
+        mats = [torch.from_numpy(c).to(dev) for c in launches]
+        out = torch.empty((chunk,) + shape, device=dev)
+        tilts = sum(len(c) for c in launches)
+
+        def sweep(**kw):
+            for c, m, p in zip(launches, mats, plans):
+                slab(vol, m, 1, out=out[:len(c)], plan=p, **kw)
+
+        def sweep_in(order):
+            for c, m in zip(launches, mats):
+                in_order(vol, m, order, out=out[:len(c)])
+
+        least = sum(bound_ms(1, shape, shape,
+                             inside_voxels(torch, vt, shape, m),
+                             len(m))[0] * len(m) for m in mats)
+        key = "tomogram" if shape == TOMO_SHAPE else f"{shape[0]}"
+        times[key] = {
+            "launches": [len(c) for c in launches],
+            "general_ms_per_tilt": time_ms(
+                torch, lambda: sweep(_force_general=True), reps=3) / tilts,
+            **{f"rows_{o}_ms_per_tilt": time_ms(
+                torch, lambda o=o: sweep_in(o), reps=5) / tilts
+               for o in orders},
+            "rows_ms_per_tilt": time_ms(torch, sweep, reps=5) / tilts,
+            "least_ms_per_tilt": least / tilts}
+        del vol, out, mats
+        torch.cuda.empty_cache()
+    # an odd shape into another output shape, widths not a multiple of 4
+    odd = (37, 50, 61)
+    vol = pitched(torch.rand(odd, generator=gen, device=dev))
+    ms = tilt_series(np, transform_matrix, odd, RECON_TILT_AXIS)
+    for mode, cval in (("constant", 1.5), ("border", 0.0)):
+        check("odd_into_other_shape", vol, ms, mode, cval, (33, 52, 70))
+        check("odd", vol, ms, mode, cval)
+    emit("parity_rows", cases=rows, item_orders=list(orders),
+         method="the row path's launch against the general kernel's with "
+         "the same plan (_force_general=True), torch.equal, and 3 tilts "
+         "of each against the plain version")
+    emit("rows_times", times=times, method="CUDA events around the "
+         "forward's launches back to back (reps after as many warm-ups), "
+         "per tilt; least: the source read once a launch and every "
+         "output written once at the memory rate, or FLOPS_INSIDE at the "
+         "fp32 rate, whichever is larger, per launch")
+    return times
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1143,6 +1276,9 @@ def main():
     emit("parity_slab_single", into_buffer="ok", batch_equals_single="ok",
          overflows=overflows)
     del vol, buf
+
+    # ------------------ 4d. B's row path vs its general kernel, bit for bit
+    rows_times = rows_phase(torch, np, dev)
 
     # --------------------------- 4b. C vs its plain version, bit for bit
     from voltools_tpu_torch.parallel.sharded import _shifted
@@ -2934,6 +3070,12 @@ def main():
         "equal_to_walk": True, "overflows": S.overflows(dev),
         "walk_same_matrices_ms":
             t["recon_tilt_linear_batch_walk_ms_per_matrix"],
+        "rows_ms_per_tilt": {k: v["rows_ms_per_tilt"]
+                             for k, v in rows_times.items()},
+        "rows_general_ms_per_tilt": {k: v["general_ms_per_tilt"]
+                                     for k, v in rows_times.items()},
+        "rows_least_ms_per_tilt": {k: v["least_ms_per_tilt"]
+                                   for k, v in rows_times.items()},
         "single_ms": t["tilt_linear_slab_ms"],
         "single_bound_ms": t["tilt_linear_bound_ms"],
         "walk_single_same_matrices_ms": t["tilt_linear_walk_same_ms"],

@@ -77,11 +77,14 @@ def test_projector_matches_jax(vol, interpolation, projection_axis,
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=PROJ_ATOL, rtol=0)
     # the single-axis sweep is planned as one envelope: the box rule admits
-    # it, and the planner's speed rule picks the kernel
+    # it, and the planner's speed rule picks the kernel, or its row rule
+    # the slab kernel's row path where the sweep is trilinear and leaves
+    # array axis 2 alone ('rzxz' with the angle at position 0)
     interp = "linear" if interpolation == "linear" else "bspline"
     assert isinstance(slab_plan(ms, SHAPE, interp), SlabPlan)
     assert tvt.last_dispatch()["variant"] == choose_plan(ms, SHAPE, interp)
-    assert tvt.last_dispatch()["rule"] == "speed"
+    rows = interp == "linear" and tilt_axis == 0
+    assert tvt.last_dispatch()["rule"] == ("rows" if rows else "speed")
 
 
 def test_projector_plans_from_the_matrices_it_is_given(vol, monkeypatch):

@@ -94,6 +94,16 @@
 // What it leaves for later: a CTA that marched along z could reuse the
 // overlap of consecutive boxes (the TPU kernel's window reuse), and the
 // cubic kernel takes (8, 8, 32) bricks faster where their boxes fit.
+//
+// The row path (affine_rows_kernel, entry affine_rows_launch; "rows"
+// below) is a second kernel for trilinear launches whose every matrix
+// leaves the row axis alone, as a single-axis tilt series about array
+// axis 2 does (the reconstruction's, SIRT's forward): each output row is
+// the bilinear mix of four whole source rows, so it needs no box, no TMA
+// and no shared memory.  The planner's row rule sends such a launch of
+// two or more matrices there (kernels/planner.py::route); every other
+// launch keeps the general kernel above, whose code is untouched.  On a
+// finite volume the two agree bit for bit.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -473,6 +483,268 @@ affine_slab_kernel(const __grid_constant__ CUtensorMap map,
   }
 }
 
+// ---------------------------------------------------------------- rows
+//
+// The row path, for trilinear launches whose every matrix leaves the row
+// axis alone (the planner's row rule, kernels/planner.py: row 2 of each
+// matrix (0, 0, 1, 0) and column 2 of rows 0 and 1 zero).  A voxel's
+// source x is then its own x, with fraction 0, and its source (z, y)
+// depends on the output (z, y) alone.  So output row (u, v) of matrix b is
+// the bilinear mix of four whole source rows, whose weights and validity
+// are the same for every x.  Each thread forms them once per row, from
+// resample_taps.cuh's expressions evaluated at x = 0 (m[2] * 0 and m[2] *
+// x are the same signed zero, so the coordinates are the general path's,
+// bit for bit), reads the four rows 16 bytes at a time and writes 4
+// voxels.  The general path's x lerp has weights 1 and 0: the product by 1
+// is exact and the product by 0 is a zero, which leaves the sum as it is
+// (the sum starts at +0 and so is never -0), so on a finite volume the row
+// path equals the general kernel bit for bit.
+//
+// A CTA covers kRowSegment floats of x in a patch of kRowsPerThread x
+// kRowThreadsY output rows (u, v) of one matrix, kRowThreadsX threads a
+// row: its threads take the patch's kRowThreadsY rows along v together,
+// then the next u, so that the source rows neighbouring output rows share
+// are read again from L1 (a 4 x 32 patch reads 512 source rows; a tilt
+// keeps the patch's area, so some 165 of them are distinct).
+//
+// CTAs are numbered x segment first, then matrix, then the rows (the
+// segments order): the CTAs that run at one time cover one segment of one
+// or two matrices, so the source slab under that segment (16 MB for (256,
+// 512) planes) stays in L2 across the launch's matrices and leaves HBM
+// once a launch, not once a matrix; the output is stored with the
+// evict-first hint, so it does not push the slab out.  Or matrix first,
+// then the rows, then the segments (the matrices order).  The launch takes
+// the segments order where the output's rows are whole 128-byte lines (a
+// segment's stores fill its lines: where a line holds two segments, which
+// the segments order writes far apart in time, it is written twice) and
+// where a segment's source slab fits half the L2; else the matrices order.
+// Measured on an H100 (tools/slab_variants.py, PERF.md): at (256, 512,
+// 512) in launches of 8, 0.143 ms a tilt in the segments order against
+// 0.183 in the matrices order (the general kernel 0.41, the stores alone
+// 0.082-0.091); at 250^3 in launches of 34 and 7, whose rows of 250
+// floats are not whole lines, 0.054 against 0.107 the other way round.
+//
+// What bounds it: the output, written once (268 MB a tilt at (256, 512,
+// 512)), and the source read once a launch; no box, no shared memory, and
+// a few dozen instructions a row for 4 voxels a thread.  What holds it
+// above that: the source rows' reads, four a row, from L1 and L2 (the
+// stores alone take 0.082-0.091 ms a tilt, the least is 0.090); neither
+// more voxels a thread nor 32-bit offsets moved it.
+//
+// A non-finite voxel is where the two paths part: the general kernel's x
+// lerp multiplies the voxel at x + 1 by the weight 0, which turns an Inf or
+// NaN there into a NaN at x; the row path leaves that lerp out, so the
+// voxel at x keeps its value.  Every other voxel agrees.
+//
+// The kernel tests each matrix's row-axis entries (the planner checks them
+// on the host, but matrices on the card are not read back): the CTAs of a
+// matrix that does not leave the row axis alone resample each of its
+// voxels as the general kernel does one outside its box, from global
+// memory with tap_sum, so the result is right, and add its voxels to the
+// overflow counter.  The test costs the row path 2% at (256, 512, 512) in
+// launches of 8 'constant' (0.1466 against 0.1436 ms a tilt on an H100,
+// 8 more registers a thread) and nothing measurable at 'border' or 250^3.
+constexpr int kRowSegment = 32;    // floats of x a CTA covers
+constexpr int kRowQuads = 1;       // 4-float quads of a row a thread takes
+constexpr int kRowThreadsX = kRowSegment / (4 * kRowQuads);
+constexpr int kRowThreadsY = 32;   // rows along v a CTA covers at a time
+constexpr int kRowsPerThread = 4;  // rows along u each thread takes in turn
+constexpr int kRowThreads = kRowThreadsX * kRowThreadsY;
+
+// Voxel (u, v, w) of matrix `mat` as brick_from_box computes one outside
+// its box: every tap from global memory.  Out of line and called one voxel
+// at a time, so that the row path keeps its registers (inlined, or called
+// for a thread's whole rows, it took 62 and the tomogram's launches of 8
+// ran 10% slower on an H100; out of line a voxel, 48 and 2%).
+template <bool CONSTANT>
+__device__ __noinline__ float voxel_from_global(
+    const float* __restrict__ mat, int d0, int d1, int d2,
+    const float* __restrict__ vol, int pitch, int u, int v, int w,
+    float cval) {
+  const int n[3] = {d0, d1, d2};
+  float s[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    s[a] = resample::source_coord(
+        __ldg(mat + 4 * a), __ldg(mat + 4 * a + 1), __ldg(mat + 4 * a + 2),
+        __ldg(mat + 4 * a + 3), static_cast<float>(u),
+        static_cast<float>(v), static_cast<float>(w));
+  }
+  if (!resample::inside<CONSTANT>(s, d0, d1, d2)) return cval;
+  const resample::GlobalSource global{vol, d1, pitch};
+  resample::Taps<1> taps;
+  resample::make_taps<1, CONSTANT>(s, n, &taps);
+  return resample::tap_sum<1, CONSTANT>(taps, global);
+}
+
+// The voxels of one thread of affine_rows_kernel whose matrix does not
+// leave the row axis alone, each from voxel_from_global; their number is
+// added to *overflows.
+template <bool CONSTANT>
+__device__ __forceinline__ void rows_from_global(
+    const float* __restrict__ mat, int d0, int d1, int d2,
+    const float* __restrict__ vol, int pitch, float* __restrict__ out,
+    int b, int pu, int v, int x0, int o0, int o1, int o2, float cval,
+    int* overflows) {
+  int written = 0;
+#pragma unroll 1
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    const int u = pu * kRowsPerThread + k;
+    if (u >= o0) break;
+    float* const dst_row =
+        out + ((static_cast<long long>(b) * o0 + u) * o1 + v) *
+                  static_cast<long long>(o2);
+#pragma unroll 1
+    for (int q = 0; q < kRowQuads; ++q) {
+#pragma unroll 1
+      for (int j = 0; j < 4; ++j) {
+        const int w = x0 + 4 * kRowThreadsX * q + j;
+        if (w >= o2) break;
+        dst_row[w] = voxel_from_global<CONSTANT>(mat, d0, d1, d2, vol,
+                                                 pitch, u, v, w, cval);
+        ++written;
+      }
+    }
+  }
+  if (written) atomicAdd(overflows, written);
+}
+
+template <bool CONSTANT>
+__global__ void __launch_bounds__(kRowThreads)
+affine_rows_kernel(const float* __restrict__ vol, int d0, int d1, int d2,
+                   int pitch, const float* __restrict__ mats, int n,
+                   float* __restrict__ out, int o0, int o1, int o2,
+                   int segments, int groups, int patches_v,
+                   int segments_first, int vec_out, float cval,
+                   int* overflows) {
+  // the CTA's segment, matrix and patch of rows
+  const unsigned c = blockIdx.x;
+  int seg, b, g;
+  if (segments_first) {
+    g = static_cast<int>(c % groups);
+    const unsigned rest = c / groups;
+    b = static_cast<int>(rest % n);
+    seg = static_cast<int>(rest / n);
+  } else {
+    seg = static_cast<int>(c % segments);
+    const unsigned rest = c / segments;
+    g = static_cast<int>(rest % groups);
+    b = static_cast<int>(rest / groups);
+  }
+  // the thread's first column; its quad q starts 4 * kRowThreadsX * q on
+  const int x0 = seg * kRowSegment + 4 * static_cast<int>(threadIdx.x);
+  const int pu = g / patches_v;
+  const int v = (g - pu * patches_v) * kRowThreadsY +
+                static_cast<int>(threadIdx.y);
+  if (x0 >= o2 || v >= o1) return;
+  float m[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) m[i] = __ldg(mats + 16LL * b + i);
+  const int n3[3] = {d0, d1, d2};
+  if (!(m[2] == 0.0f && m[6] == 0.0f && m[8] == 0.0f && m[9] == 0.0f &&
+        m[10] == 1.0f && m[11] == 0.0f)) {
+    // not a row matrix (uniform across the CTA): the general kernel's
+    // arithmetic, every tap from global memory, and the voxels counted
+    rows_from_global<CONSTANT>(mats + 16LL * b, d0, d1, d2, vol, pitch, out,
+                               b, pu, v, x0, o0, o1, o2, cval, overflows);
+    return;
+  }
+  const long long plane = static_cast<long long>(d1) * pitch;
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    const int u = pu * kRowsPerThread + k;
+    if (u >= o0) break;
+    // the row's (z, y) source point at x = 0; its x is the output's own,
+    // inside where it is below d2 (both edges' tests of a whole number)
+    float s[3];
+    s[0] = resample::source_coord(m[0], m[1], m[2], m[3],
+                                  static_cast<float>(u),
+                                  static_cast<float>(v), 0.0f);
+    s[1] = resample::source_coord(m[4], m[5], m[6], m[7],
+                                  static_cast<float>(u),
+                                  static_cast<float>(v), 0.0f);
+    s[2] = 0.0f;
+    const bool inside = resample::inside<CONSTANT>(s, d0, d1, d2);
+    // the four source rows' weights, offsets and whether each is read
+    float w_zy[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    long long row[4] = {0, 0, 0, 0};
+    bool ok[4] = {false, false, false, false};
+    if (inside) {
+      resample::Taps<1> taps;
+      resample::make_taps<1, CONSTANT>(s, n3, &taps);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int iz = t >> 1, iy = t & 1;
+        w_zy[t] = __fmul_rn(taps.w[0][iz], taps.w[1][iy]);
+        row[t] = taps.idx[0][iz] * plane +
+                 static_cast<long long>(taps.idx[1][iy]) * pitch;
+        ok[t] = CONSTANT || (taps.ok[0][iz] && taps.ok[1][iy]);
+      }
+    }
+    float* const dst_row =
+        out + ((static_cast<long long>(b) * o0 + u) * o1 + v) *
+                  static_cast<long long>(o2);
+#pragma unroll
+    for (int q = 0; q < kRowQuads; ++q) {
+      const int x = x0 + 4 * kRowThreadsX * q;
+      if (x >= o2) continue;
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (inside && x < d2) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          float4 r = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (ok[t]) {
+            r = __ldg(reinterpret_cast<const float4*>(vol + row[t] + x));
+          }
+          // tap_sum's x lerp at weights (1, 0): ((w_zy * 1) * r) + a zero
+          acc[0] = __fadd_rn(acc[0], __fmul_rn(w_zy[t], r.x));
+          acc[1] = __fadd_rn(acc[1], __fmul_rn(w_zy[t], r.y));
+          acc[2] = __fadd_rn(acc[2], __fmul_rn(w_zy[t], r.z));
+          acc[3] = __fadd_rn(acc[3], __fmul_rn(w_zy[t], r.w));
+        }
+      }
+      float res[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        res[j] = inside && x + j < d2 ? acc[j] : cval;
+      }
+      // stored with the evict-first hint: the output passes L2 by and
+      // leaves it to the source
+      float* const dst = dst_row + x;
+      if (vec_out) {
+        __stcs(reinterpret_cast<float4*>(dst),
+               make_float4(res[0], res[1], res[2], res[3]));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (x + j < o2) __stcs(dst + j, res[j]);
+        }
+      }
+    }
+  }
+}
+
+// Whether the row path takes the segments order (1) or the matrices order
+// (0) for a (d0, d1, ...) source and rows of o2 floats at `out`: the
+// segments order where every output row is whole 128-byte lines and the
+// source slab under a segment fits half the L2 of the current device.
+cudaError_t row_item_order(int d0, int d1, const float* out, int o2,
+                           int* segments_first) {
+  constexpr int kLine = 128;
+  *segments_first = 0;
+  if (o2 % (kLine / 4) != 0 || reinterpret_cast<uintptr_t>(out) % kLine) {
+    return cudaSuccess;
+  }
+  int device = 0, l2 = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, device);
+  }
+  if (err != cudaSuccess) return err;
+  const long long slab = 4LL * d0 * d1 * kRowSegment;
+  *segments_first = 2 * slab <= l2 ? 1 : 0;
+  return cudaSuccess;
+}
+
 using Kernel = void (*)(CUtensorMap, const float*, int, int, int, int,
                         const float*, float*, int, int, int, int, int,
                         long long, long long, int, int, int, int, float, int*);
@@ -635,6 +907,51 @@ extern "C" int affine_slab_launch(const float* vol, int d0, int d1, int d2,
              static_cast<cudaStream_t>(stream)>>>(
       map, vol, d0, d1, d2, pitch, mats, out, o0, o1, o2, bricks_y, bricks_x,
       bricks, items, e0, e1, e2, stages, cval, overflows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C entry of the row path, bound with ctypes: the launch of affine_slab_launch
+// (vol, mats, out and overflows as there; no box, no stages) for
+// trilinear matrices that all leave the row axis alone (the planner's row
+// rule).  A matrix that does not is resampled right all the same and its
+// voxels are added to *overflows.  item_order: 1 numbers the CTAs x
+// segment first, 0 matrix first, -1 as the row kernel's note says
+// (row_item_order).  Launches on `stream` without synchronising and
+// returns the first error (0 on success).
+extern "C" int affine_rows_launch(const float* vol, int d0, int d1, int d2,
+                                  int pitch, const float* mats, long long n,
+                                  float* out, int o0, int o1, int o2,
+                                  int border, float cval, int item_order,
+                                  int* overflows, void* stream) {
+  if (d0 < 1 || d1 < 1 || d2 < 1 || pitch < d2 || pitch % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(vol) % 16 != 0 || n < 1 || o0 < 1 ||
+      o1 < 1 || o2 < 1 || overflows == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int segments = (o2 + kRowSegment - 1) / kRowSegment;
+  const int patches_v = (o1 + kRowThreadsY - 1) / kRowThreadsY;
+  const long long groups =
+      static_cast<long long>((o0 + kRowsPerThread - 1) / kRowsPerThread) *
+      patches_v;
+  if (n > INT_MAX || groups > INT_MAX || groups * segments > INT_MAX / n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long ctas = n * segments * groups;
+  // rows of 16-byte aligned voxels: 4 voxels a store
+  const int vec_out =
+      o2 % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  int segments_first = item_order;
+  if (item_order < 0) {
+    const cudaError_t err = row_item_order(d0, d1, out, o2, &segments_first);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const auto kernel = border ? affine_rows_kernel<false>
+                             : affine_rows_kernel<true>;
+  kernel<<<static_cast<unsigned>(ctas), dim3(kRowThreadsX, kRowThreadsY),
+           0, static_cast<cudaStream_t>(stream)>>>(
+      vol, d0, d1, d2, pitch, mats, static_cast<int>(n), out, o0, o1, o2,
+      segments, static_cast<int>(groups), patches_v, segments_first,
+      vec_out, cval, overflows);
   return static_cast<int>(cudaGetLastError());
 }
 

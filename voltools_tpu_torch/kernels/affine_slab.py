@@ -22,6 +22,26 @@ The kernel never reads a tap from outside its box.  A matrix whose box
 exceeds the plan's extents is still resampled right, from global memory,
 and counted on the device: :func:`overflows` reads the count.  A launch
 takes any number of matrices: its grid is persistent and walks them all.
+
+**The row path.**  A plan with ``rows`` set (the planner's row rule,
+:func:`.planner.route`: a trilinear launch of two or more matrices that
+all leave the row axis alone, as a tilt series about array axis 2 does)
+launches a second kernel of the same source, which stages no box: each
+output row is the bilinear mix of four whole source rows, its weights
+formed once per row and the rows read 16 bytes at a time.  On a finite
+volume it equals the general kernel bit for bit (``_force_general=True``
+launches that one with the same plan).  Where the volume holds an Inf or
+a NaN, the general kernel also gives a NaN at the voxel's x - 1
+neighbour (its x lerp multiplies the voxel by the weight 0); the row path,
+which leaves that lerp out, does not.  A matrix on the card that does not
+leave the row axis alone is resampled right from global memory and its
+voxels are counted (:func:`overflows`).  Its bound is the output, written
+once, and the source, read once a launch: where the output's rows are
+whole 128-byte lines and a 32-float segment's source slab fits half the
+L2, as at (256, 512, 512), its CTAs are numbered x segment first, so that
+slab stays in L2 across the launch's matrices; elsewhere matrix first
+(the C entry decides, csrc/affine_slab.cu).  ``affine_slab.row_launches``
+counts its launches.
 """
 
 from __future__ import annotations
@@ -36,7 +56,8 @@ from . import _build
 from .affine_resample import (_MODES, _PLAIN_INTERPOLATION, _check,
                               _check_launch, _device_index, _plain)
 from .layout import ROW_ALIGN, row_pitch, tma_ready
-from .planner import MAX_BOX, STAGES, SlabPlan, slab_extents, slab_plan
+from .planner import (MAX_BOX, ROW_AXIS, STAGES, SlabPlan, _leaves_alone,
+                      slab_extents, slab_plan)
 
 NAME = "affine_slab"
 SOURCE = "voltools_tpu_torch/csrc/affine_slab.cu"
@@ -62,6 +83,17 @@ def _library():
         ctypes.c_void_p,                                  # stream
     ]
     fn.restype = ctypes.c_int
+    rows = lib.affine_rows_launch
+    rows.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # volume
+        ctypes.c_int,                                               # pitch
+        ctypes.c_void_p, ctypes.c_longlong,                         # matrices
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # output
+        ctypes.c_int, ctypes.c_float,                     # border, cval
+        ctypes.c_int,                                     # item order
+        ctypes.c_void_p, ctypes.c_void_p,                 # overflows, stream
+    ]
+    rows.restype = ctypes.c_int
     occ = lib.affine_slab_blocks_per_sm
     occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,   # box
                     ctypes.c_int,                               # stages
@@ -75,7 +107,9 @@ def _library():
 
 def overflows(device="cuda") -> int:
     """How many voxels the kernel found with a tap outside their box on
-    ``device``, in this process.  Reading it waits for the device."""
+    ``device``, in this process, and on the row path how many it wrote of
+    matrices that do not leave the row axis alone.  Reading it waits for
+    the device."""
     counter = _OVERFLOWS.get(_device_index(device))
     return 0 if counter is None else int(counter.item())
 
@@ -106,8 +140,11 @@ def _counter(device: torch.device) -> torch.Tensor:
     return counter
 
 
-def _fit_plan(plan, volume, matrices, order, mode, out_shape) -> SlabPlan:
-    """The plan of this launch, checked against its arguments."""
+def _fit_plan(plan, volume, matrices, order, mode, out_shape,
+              force_general=False) -> SlabPlan:
+    """The plan of this launch, checked against its arguments; its box
+    only where the general kernel launches (not a row plan, or
+    ``force_general``): the row path stages none."""
     interpolation = _PLAIN_INTERPOLATION[order]
     vol_shape = tuple(volume.shape)
     if plan is None:
@@ -125,7 +162,9 @@ def _fit_plan(plan, volume, matrices, order, mode, out_shape) -> SlabPlan:
         return plan
     if not isinstance(plan, SlabPlan):
         raise TypeError(f"plan must be a SlabPlan, got {type(plan).__name__}")
-    if plan.extents[2] % ROW_ALIGN or max(plan.extents) > MAX_BOX:
+    general = not plan.rows or force_general
+    if general and (plan.extents[2] % ROW_ALIGN
+                    or max(plan.extents) > MAX_BOX):
         raise ValueError(
             f"TMA takes boxes of at most {MAX_BOX} voxels along an axis and "
             f"x a multiple of {ROW_ALIGN}, not {plan.extents}")
@@ -135,19 +174,26 @@ def _fit_plan(plan, volume, matrices, order, mode, out_shape) -> SlabPlan:
             f"plan for order {plan.order}, {plan.mode!r}, volume "
             f"{plan.vol_shape} -> {plan.out_shape} does not match the call: "
             f"order {order}, {mode!r}, volume {vol_shape} -> {out_shape}")
-    if matrices.device.type == "cpu":
+    if plan.rows and order != 1:
+        raise ValueError(f"the row path is trilinear, not order {order}")
+    if matrices.device.type == "cpu" and general:
         need = slab_extents(matrices.numpy(), vol_shape, order, out_shape)
         if any(a > b for a, b in zip(need, plan.extents)):
             raise ValueError(
                 f"these matrices need a box of {need}, over the plan's "
                 f"{plan.extents}")
+    elif (matrices.device.type == "cpu"
+          and not _leaves_alone(matrices.numpy(), ROW_AXIS)):
+        raise ValueError(
+            f"a row plan takes matrices that leave axis {ROW_AXIS} alone; "
+            f"these do not")
     return plan
 
 
 def affine_slab(volume: torch.Tensor, matrices: torch.Tensor, order: int,
                 mode: str = "constant", cval: float = 0.0, out_shape=None,
-                out: torch.Tensor = None,
-                plan: SlabPlan = None) -> torch.Tensor:
+                out: torch.Tensor = None, plan: SlabPlan = None,
+                _force_general: bool = False) -> torch.Tensor:
     """Resample ``volume`` (D, H, W) through pull-back ``matrices`` with the
     slab kernel.
 
@@ -161,13 +207,20 @@ def affine_slab(volume: torch.Tensor, matrices: torch.Tensor, order: int,
     matrices back to the host), and a call whose box the kernel cannot take
     raises.
     Matrices on the CPU that need more than a given plan's extents raise;
-    on the card the kernel counts them (:func:`overflows`).
+    on the card the kernel counts them (:func:`overflows`).  A row plan
+    (``plan.rows``) launches the row path, which stages no box, so its
+    extents are not checked; its reference is the general kernel:
+    ``_force_general`` launches that with the plan's box.  Matrices on the
+    CPU that a row plan cannot take raise; on the card the row path
+    resamples them from global memory and counts them.
     ``affine_slab.launches`` counts the kernel launches (the CPU path
-    launches nothing)."""
+    launches nothing), ``affine_slab.row_launches`` those of the row
+    path."""
     out_shape = (tuple(volume.shape) if out_shape is None
                  else tuple(int(s) for s in out_shape))
     full = _check(volume, matrices, order, mode, out_shape, out)
-    plan = _fit_plan(plan, volume, matrices, order, mode, out_shape)
+    plan = _fit_plan(plan, volume, matrices, order, mode, out_shape,
+                     _force_general)
 
     if volume.device.type == "cpu":
         return _plain(volume, matrices, order, mode, cval, out_shape, out)
@@ -181,21 +234,31 @@ def affine_slab(volume: torch.Tensor, matrices: torch.Tensor, order: int,
         out = torch.empty(full, dtype=torch.float32, device=volume.device)
     if n == 0:
         return out
+    rows = plan.rows and not _force_general
     lib = _library()
     # the launch goes to the current device; make it the volume's for the
     # call only, so the caller's current device is left as it was
     with torch.cuda.device(volume.device):
-        code = lib.affine_slab_launch(
-            volume.data_ptr(), *volume.shape, row_pitch(volume),
-            matrices.data_ptr(), n, out.data_ptr(), *out_shape,
-            *plan.extents, STAGES, order, _MODES[mode], float(cval),
-            _counter(volume.device).data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if rows:
+            code = lib.affine_rows_launch(
+                volume.data_ptr(), *volume.shape, row_pitch(volume),
+                matrices.data_ptr(), n, out.data_ptr(), *out_shape,
+                _MODES[mode], float(cval), -1,
+                _counter(volume.device).data_ptr(), stream)
+        else:
+            code = lib.affine_slab_launch(
+                volume.data_ptr(), *volume.shape, row_pitch(volume),
+                matrices.data_ptr(), n, out.data_ptr(), *out_shape,
+                *plan.extents, STAGES, order, _MODES[mode], float(cval),
+                _counter(volume.device).data_ptr(), stream)
     if code != 0:
         message = lib.affine_slab_error_string(code).decode()
         raise RuntimeError(f"affine_slab launch failed: {message} ({code})")
     affine_slab.launches += 1
+    affine_slab.row_launches += rows
     return out
 
 
 affine_slab.launches = 0
+affine_slab.row_launches = 0

@@ -50,6 +50,7 @@ from ..ops.interpolation import (_inside, _mirror_index,
                                  cubic_bspline_weights, spline_order)
 from ..ops.sampling import affine_coords
 from . import _build
+from .planner import _leaves_alone
 
 NAME = "partial_sample"
 SOURCE = "voltools_tpu_torch/csrc/partial_sample.cu"
@@ -468,17 +469,6 @@ def sum_order_atol(n_planes: int, largest: float) -> float:
     :func:`plain_partial_project` of the slab's magnitudes (the weights
     are not negative)."""
     return 2 * (n_planes - 1) * 2.0 ** -24 * largest
-
-
-def _leaves_alone(matrices, r: int) -> bool:
-    """Whether every matrix has row ``r`` equal to ``e_r`` and column
-    ``r`` of the other two rows 0, in exact float32 equality: a sample's
-    coordinate along ``r`` is then the output index itself and the other
-    two do not depend on it."""
-    m = np.asarray(matrices, np.float32).reshape(-1, 4, 4)
-    others = [a for a in range(3) if a != r]
-    return bool(np.all(m[:, r] == np.eye(4, dtype=np.float32)[r])
-                and np.all(m[:, others, r] == 0))
 
 
 def line_axis(matrices, projection_axis: int):

@@ -13,7 +13,8 @@ read from, and how fast:
 * :mod:`.affine_resample` (the port of the TPU plane walk) gathers every
   tap from global memory and serves any matrix.
 
-Two rules decide, on the plan alone (the planner never times anything):
+Three rules decide, on the plan alone (the planner never times anything);
+the row rule is tried first, after the speed rule's launch size:
 
 1. **The box rule** -- can the slab kernel take the launch?  The box of
    every brick, for the envelope of every matrix in the launch, must fit
@@ -56,6 +57,19 @@ Two rules decide, on the plan alone (the planner never times anything):
    every box size (1.4-1.5x on the tilt series).  A launch of fewer
    matrices than the window's, or of an order it leaves out, is decided
    before any plan is made: the planner runs on every call.
+3. **The row rule** -- does every matrix leave the row axis alone?  Where
+   a trilinear launch that the speed rule's size admits (``matrices`` or
+   more) has every matrix's row 2 equal to (0, 0, 1, 0) and column 2 of
+   rows 0 and 1 zero (:func:`_leaves_alone` of ``ROW_AXIS``), each output
+   row is a weighted sum of four whole source rows: the slab kernel takes
+   it on its row path (``SlabPlan.rows``), which stages no box, so the
+   box rule and the box size do not apply.  A single-axis tilt series
+   about array axis 2 ('rzxz' with the angle at position 0) is such a
+   launch.  The route's rule is then 'rows'.  The plan keeps the box of
+   the general kernel, which the row path never stages and does not
+   check.  On a finite volume the row path is the general kernel bit for
+   bit; an Inf or a NaN voxel turns its x - 1 neighbour into NaN in the
+   general kernel (its x lerp's weight 0 times the voxel), not here.
 
 The TPU-only parts of ``choose_variant`` have no counterpart: the 36 axis
 permutations, sublane drift and slop, row budgets, the unroll and fori
@@ -64,6 +78,7 @@ tiers, the VMEM budget and the cost model.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
@@ -81,6 +96,7 @@ STAGES = 2                  # box buffers per CTA: one computed, one loading
 SMEM_BUDGET = 112 * 1024    # bytes of one box buffer: STAGES fit 227 KB
 MAX_BOX = 256               # TMA's largest box extent along an axis
 SLACK = 3
+ROW_AXIS = 2                # the row path's untouched axis: rows of x
 
 
 class SlabWindow(NamedTuple):
@@ -104,6 +120,7 @@ class SlabPlan:
     vol_shape: Tuple[int, int, int]
     out_shape: Tuple[int, int, int]
     extents: Tuple[int, int, int]    # box voxels along source (z, y, x)
+    rows: bool = False               # the row path: no box is staged
 
     @property
     def smem_bytes(self) -> int:
@@ -121,7 +138,8 @@ class SlabPlan:
 
 class Route(NamedTuple):
     """The planner's choice: a plan for the slab kernel, or ``None`` for
-    the walk kernel; the rule that decided ('box' or 'speed') and why."""
+    the walk kernel; the rule that decided ('box', 'speed' or 'rows') and
+    why."""
     plan: Optional[SlabPlan]
     rule: str
     reason: str
@@ -135,6 +153,17 @@ def _as_stack(matrices) -> np.ndarray:
         raise ValueError(
             f"matrices must be (4, 4) or (N, 4, 4), got {m.shape}")
     return m
+
+
+def _leaves_alone(matrices, r: int) -> bool:
+    """Whether every matrix has row ``r`` equal to ``e_r`` and column
+    ``r`` of the other two rows 0, in exact float32 equality: a sample's
+    coordinate along ``r`` is then the output index itself and the other
+    two do not depend on it."""
+    m = np.asarray(matrices, np.float32).reshape(-1, 4, 4)
+    others = [a for a in range(3) if a != r]
+    return bool(np.all(m[:, r] == np.eye(4, dtype=np.float32)[r])
+                and np.all(m[:, others, r] == 0))
 
 
 def slab_extents(matrices, vol_shape, order: int,
@@ -184,9 +213,10 @@ def _box_refusal(plan: SlabPlan) -> Optional[str]:
 def slab_plan(matrices, vol_shape, interpolation: str,
               mode: str = "constant",
               out_shape=None) -> Optional[SlabPlan]:
-    """A :class:`SlabPlan` when the slab kernel can serve ``matrices`` (one
-    (4, 4) matrix or an (N, 4, 4) envelope) in one launch -- the box rule
-    alone -- else ``None``."""
+    """A :class:`SlabPlan` of the general kernel when the slab kernel can
+    serve ``matrices`` (one (4, 4) matrix or an (N, 4, 4) envelope) in one
+    launch -- the box rule alone -- else ``None``.  Only :func:`route`
+    gives row plans."""
     plan = _plan(matrices, vol_shape, interpolation, mode, out_shape)
     return plan if _box_refusal(plan) is None else None
 
@@ -210,6 +240,12 @@ def route(matrices, vol_shape, interpolation: str, mode: str = "constant",
                      f"{n} matrices a launch, outside the slab kernel's "
                      f"window of at least {window.matrices} (order {order})")
     plan = _plan(matrices, vol_shape, interpolation, mode, out_shape)
+    if order == 1 and _leaves_alone(matrices, ROW_AXIS):
+        return Route(dataclasses.replace(plan, rows=True), "rows",
+                     f"{n} matrices that leave the row axis alone: the "
+                     f"slab kernel's row path, four source rows an output "
+                     f"row, no box (order {order}); the general kernel "
+                     f"bit for bit on a finite volume")
     refusal = _box_refusal(plan)
     if refusal is not None:
         return Route(None, "box", refusal)

@@ -72,18 +72,21 @@ _LAST_DISPATCH = threading.local()
 # formats no string
 _ROUTE_COUNTERS = {(slab, rule): f"route.kernel_{'b' if slab else 'a'}.{rule}"
                    for slab in (False, True) for rule in ("box", "speed")}
+_ROUTE_COUNTERS[True, "rows"] = "route.kernel_b.rows"
 
 
 def last_dispatch():
     """Diagnostics: how the calling thread's most recent transform was
     served -- ``{'impl': 'cuda'|'torch', 'variant': SlabPlan|None,
-    'rule': 'box'|'speed', 'reason': str}``.  ``'cuda'`` is a CUDA kernel,
-    ``'torch'`` the plain version on the CPU.  ``variant`` is the planner's
-    :class:`~.kernels.planner.SlabPlan` when the slab kernel took the call
-    (or would have, on the CPU), ``None`` for the walk kernel; ``rule`` is
-    the planner's rule that picked the kernel (the box rule: the slab kernel
-    cannot take the call; the speed rule: which kernel is faster for it),
-    and ``reason`` names the kernel and the rule's numbers."""
+    'rule': 'box'|'speed'|'rows', 'reason': str}``.  ``'cuda'`` is a CUDA
+    kernel, ``'torch'`` the plain version on the CPU.  ``variant`` is the
+    planner's :class:`~.kernels.planner.SlabPlan` when the slab kernel took
+    the call (or would have, on the CPU), ``None`` for the walk kernel;
+    ``rule`` is the planner's rule that picked the kernel (the box rule:
+    the slab kernel cannot take the call; the speed rule: which kernel is
+    faster for it; the row rule: the slab kernel's row path, for matrices
+    that leave the row axis alone), and ``reason`` names the kernel and
+    the rule's numbers."""
     pieces = getattr(_LAST_DISPATCH, "pieces", None)
     if pieces is None:
         return None

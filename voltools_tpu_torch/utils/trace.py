@@ -291,6 +291,7 @@ def counts() -> dict:
                ps.partial_sample_ring, ps.partial_project):
         total[f"launches.{fn.__name__}"] = fn.launches
     total["launches.partial_project.line"] = ps.partial_project.line_launches
+    total["launches.affine_slab.rows"] = affine_slab.affine_slab.row_launches
     for name in list(_build._LOADED):
         total[f"load.{name}"] = 1
     for name in list(_build.BUILD_LOG):
