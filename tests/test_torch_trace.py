@@ -176,6 +176,55 @@ def test_each_call_has_its_own_call_id():
         e["args"]["id"] for e in roots}
 
 
+def _matcher(orientations):
+    rng = np.random.default_rng(5)
+    box = 8
+    g = np.arange(box) - box // 2
+    r2 = g[:, None, None] ** 2 + g[None, :, None] ** 2 + g[None, None, :] ** 2
+    tm = vt.TemplateMatcher(rng.random((16, 20, 18)).astype(np.float32),
+                            rng.random((box,) * 3).astype(np.float32),
+                            (r2 <= 9).astype(np.float32), device="cpu")
+    ms = np.stack([transform_matrix(rotation=(a, 10, 0),
+                                    center=(box // 2,) * 3)
+                   for a in np.linspace(0, 90, orientations)])
+    return tm, ms
+
+
+@pytest.mark.parametrize("orientations", [1, 3])
+def test_matching_spans_nest_in_match_and_count_each_orientation(
+        orientations):
+    tm, ms = _matcher(orientations)
+    tm.match(ms)
+    off = tm.result()
+    tm.reset()
+    before = trace.counts()
+    _, export = _traced(lambda: tm.match(ms))
+    after = trace.counts()
+    spans = _spans(export)
+    by_id = {e["args"]["id"]: e for e in spans}
+    (root,) = [e for e in spans if e["args"]["parent"] is None]
+    assert root["name"] == "match"
+    names = [e["name"] for e in spans]
+    for name in ("match.template", "match.correlate", "match.update"):
+        assert names.count(name) == orientations
+    for e in spans:
+        if e["name"].startswith("match."):
+            assert by_id[e["args"]["parent"]]["name"] == "match"
+        elif e is not root:
+            # the template's rotation: StaticVolume.affine and its launch
+            ancestor = e
+            while ancestor["args"]["parent"] != root["args"]["id"]:
+                ancestor = by_id[ancestor["args"]["parent"]]
+            assert ancestor["name"] == "match.template"
+    assert names.count("api.affine") == orientations
+    moved = {k: after.get(k, 0) - before.get(k, 0)
+             for k in ("match.orientations", "match.transforms")}
+    assert moved == {"match.orientations": orientations,
+                     "match.transforms": 2 * orientations}
+    for a, b in zip(off, tm.result()):
+        assert np.array_equal(a, b)
+
+
 @pytest.mark.parametrize("name", ENTRIES)
 def test_results_are_bit_identical_with_tracing_on(name):
     off = _entry(name)()

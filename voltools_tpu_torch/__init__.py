@@ -5,8 +5,9 @@
 edges, a one-shot functional API, a device-resident ``StaticVolume`` with
 batched transforms, the tilt-series models (``models``: projector,
 weighted back-projection, SIRT, each reconstruction also over a device
-mesh) and registration (``models.phase_cross_correlation``,
-``models.register`` and its ``models.RegistrationResult``), and several
+mesh), template matching (``TemplateMatcher``) and registration
+(``models.phase_cross_correlation``, ``models.register`` and its
+``models.RegistrationResult``), and several
 devices (``parallel``: a ``Mesh`` of devices, which may repeat, a
 ``ShardedVolume`` sharded along z and ``sharded_affine_batch``).  The resampling runs in two hand-written
 CUDA kernels that compute the same function: ``csrc/affine_slab.cu``
@@ -36,6 +37,9 @@ from .transforms import (
 from .ops.interpolation import AVAILABLE_INTERPOLATIONS
 from .volume import StaticVolume
 from . import models, ops, parallel, utils
+# the JAX package has no template matching: importable here, and kept out
+# of ``__all__``, which holds the JAX package's names and subpackages
+from .models import TemplateMatcher  # noqa: F401
 
 __version__ = "0.6.0"
 
