@@ -11,7 +11,7 @@ It imports torch, numpy, scipy and the port only (never JAX, never
 
 1. card   -- the ``nvidia-smi`` name and power limit, torch, CUDA and nvcc
    versions;
-2. build  -- ``nvcc`` builds the four kernels, ``csrc/affine_resample.cu``
+2. build  -- ``nvcc`` builds the five kernels, ``csrc/affine_resample.cu``
    (the walk port, A: warp patches, a cubic interior fast path and float4
    rows), ``csrc/affine_slab.cu`` (the slab port, B),
    ``csrc/backproject.cu`` (the reconstructions' back-projection, C: a
@@ -19,6 +19,7 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    ``csrc/partial_sample.cu`` (the sharded paths' per-slab partial sample,
    D: D1 the stream body's ring, in one launch a shard or a launch a
    step, D2 the mesh SIRT's forward, on a line path for tilt series),
+   ``csrc/match_update.cu`` (template matching's update),
    ``tools/backproject_baseline.cu`` (C's row-gather path before its
    redesign, timed beside it in phase 7) and
    ``tools/partial_sample_baseline.cu`` (D before its redesign, timed
@@ -85,6 +86,22 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    orders beside the general kernel's and the launches' least time (the
    source read once a launch, every output written once) at 250^3 and at
    the tomogram's shape;
+4e. parity_match_update, match_update_times -- template matching's
+   update kernel against its plain version (the four torch kernels it
+   replaces) at the tomogram's (256, 512, 512), bit for bit (the scores'
+   bit patterns): a run of orientations from the maps ``reset()`` leaves,
+   with ``inv`` 0 at a tenth of the voxels, one correlation repeated
+   (ties) and one with NaN; each launch's improved-voxel count against
+   the indices it changed; then its device time beside its bound (the
+   three maps read once; every voxel written, after a reset), the plain
+   four torch kernels and the share of voxels each orientation improves,
+   over a sweep of fresh correlations from a reset;
+4f. matcher_launches -- ``TemplateMatcher.match`` at tm512's shapes (a
+   (256, 512, 512) tomogram, a 48^3 template): one call of 16
+   orientations from a reset, the launch counters set to 0 just before,
+   launches the update kernel once an orientation; then each orientation
+   a call, its update bit for bit the plain version's on the matcher's
+   own correlation;
 5. main   -- the main path at 250^3 float32, through the public API:
    ``StaticVolume`` 'linear' and 'filt_bspline' on 'cuda', ``.affine`` over
    16 random rotations and ``.affine_batch`` of the same 16, and the
@@ -306,6 +323,15 @@ SHARD_SIRT_ITERATIONS = 3
 # the line's start (4), two fractions (2), three lerps (9) and the sum (1)
 BACKPROJECT_FLOPS = {True: 4, False: 16}
 TOMO_SHAPE = (256, 512, 512)       # a tomogram cryo-ET users reconstruct
+# phase 4e: the orientations of the parity run and of the timed sweep,
+# both from the maps reset() leaves
+MATCH_RUN = 8
+MATCH_SWEEP = 64
+# phase 4f: tm512's template box, its mask's radius and the orientations
+# of one TemplateMatcher.match call (tm512-match scores 16 a call)
+MATCH_BOX = 48
+MATCH_MASK_RADIUS = 20.0
+MATCH_CALL = 16
 # phase 4b: a row-gather matrix whose rows coordinate is scaled this much
 # spans more rows than the first tile's window can hold
 LARGE_SPAN_SCALE = 30.0
@@ -911,6 +937,188 @@ def rows_phase(torch, np, dev):
     return times
 
 
+def score_diff(torch, a, b):
+    """Between two (scores, indices) pairs: the largest |difference| of the
+    scores over voxels whose bit patterns differ (NaN against any other
+    pattern counts as infinity), the largest distance between the bit
+    patterns read as int32, and the indices that differ; all 0 where the
+    two are equal bit for bit."""
+    bits_a, bits_b = a[0].view(torch.int32), b[0].view(torch.int32)
+    differ = bits_a != bits_b
+    gap = torch.where(differ, (a[0] - b[0]).abs(),
+                      torch.zeros_like(a[0])).nan_to_num_(nan=float("inf"))
+    bits = (bits_a.to(torch.int64) - bits_b.to(torch.int64)).abs()
+    return (float(gap.max()), int(bits.max()),
+            int((a[1] != b[1]).sum()))
+
+
+def match_update_phase(torch, np, dev):
+    """Phase 4e: template matching's update kernel against its plain
+    version at the tomogram's size, bit for bit, over a run of
+    orientations from a reset; its improved-voxel count; its device time
+    beside its bound, the plain version and the share of voxels improved.
+    Returns the numbers for the kernels' line."""
+    from voltools_tpu_torch.kernels import match_update as MU
+    shape = TOMO_SHAPE
+    n = int(np.prod(shape))
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def reset(maps):
+        maps[0].fill_(-float("inf"))
+        maps[1].fill_(-1)
+
+    def fresh():
+        maps = (torch.empty(shape, device=dev),
+                torch.empty(shape, dtype=torch.int32, device=dev))
+        reset(maps)
+        return maps
+
+    inv = torch.rand(shape, generator=gen, device=dev).add_(0.5)
+    inv.masked_fill_(torch.rand(shape, generator=gen, device=dev) < 0.1, 0.0)
+    ccs = [torch.randn(shape, generator=gen, device=dev)
+           for _ in range(MATCH_RUN)]
+    ccs[3] = ccs[1]                         # ties
+    ccs[5].masked_fill_(torch.rand(shape, generator=gen, device=dev) < 0.01,
+                        float("nan"))
+    kernel, plain = fresh(), fresh()
+    launches = MU.match_update.launches
+    rows = []
+    worst = [0.0, 0, 0]
+    for k, cc in enumerate(ccs):
+        MU.plain_match_update(cc, inv, *plain, k)
+        before_indices = kernel[1].clone()
+        before = MU.improved_voxels(dev)
+        MU.match_update(cc, inv, *kernel, k)
+        torch.cuda.synchronize()
+        diff = score_diff(torch, kernel, plain)
+        worst = [max(w, d) for w, d in zip(worst, diff)]
+        assert diff == (0.0, 0, 0), ("match_update", k, diff)
+        improved = MU.improved_voxels(dev) - before
+        changed = int((kernel[1] != before_indices).sum())
+        assert improved == changed, (k, improved, changed)
+        rows.append({"orientation": k, "improved_share": improved / n})
+    assert MU.match_update.launches - launches == MATCH_RUN
+    nan = int(torch.isnan(kernel[0]).sum())
+    negative_zero = int(((kernel[0] == 0)
+                         & torch.signbit(kernel[0])).sum())
+    emit("parity_match_update", shape=list(shape), orientations=rows,
+         nan_scores=nan, negative_zero_scores=negative_zero,
+         max_abs_err=worst[0], max_bit_diff=worst[1],
+         index_mismatch=worst[2],
+         method="the kernel against plain_match_update on the card after "
+         "each orientation (score_diff: max_abs_err over the scores whose "
+         "bit patterns differ, max_bit_diff between the patterns as int32, "
+         "index_mismatch the indices that differ; the largest over the "
+         "run); improved_share the kernel's count over the voxels, equal "
+         "to the indices it changed")
+    del ccs, plain, before_indices
+
+    # the times: every voxel written (after a reset), then a sweep of
+    # fresh correlations from a reset, each launch timed alone
+    cc = torch.empty(shape, device=dev)
+    torch.randn(shape, generator=gen, out=cc)
+    firsts = []
+    for _ in range(5):
+        reset(kernel)
+        firsts.append(event_ms(
+            torch, lambda: MU.match_update(cc, inv, *kernel, 0))[0])
+    first_ms = sum(firsts) / len(firsts)
+    reset(kernel)
+    sweep, shares = [], []
+    for k in range(MATCH_SWEEP):
+        torch.randn(shape, generator=gen, out=cc)
+        before = MU.improved_voxels(dev)
+        sweep.append(event_ms(
+            torch, lambda k=k: MU.match_update(cc, inv, *kernel, k))[0])
+        shares.append((MU.improved_voxels(dev) - before) / n)
+    plain = fresh()
+    plain_ms = time_ms(torch, lambda: MU.plain_match_update(
+        cc, inv, *plain, 0), reps=5)
+    late = MATCH_SWEEP // 4
+    times = {
+        "shape": list(shape),
+        "first_ms": first_ms,
+        "sweep_ms": sweep,
+        "sweep_mean_ms": sum(sweep) / len(sweep),
+        "late_ms": sum(sweep[-late:]) / late,
+        "improved_share": shares,
+        "late_improved_share": sum(shares[-late:]) / late,
+        "plain_ms": plain_ms,
+        "max_abs_err": worst[0], "max_bit_diff": worst[1],
+        "index_mismatch": worst[2],
+        "bound_ms": 12.0 * n / HBM_BYTES_PER_S * 1e3,
+        "bound_all_written_ms": 20.0 * n / HBM_BYTES_PER_S * 1e3,
+    }
+    emit("match_update_times", **times,
+         method="CUDA events around each launch; first_ms: a launch on "
+         "the maps reset() leaves, every voxel written (5 runs); sweep_ms: "
+         f"{MATCH_SWEEP} orientations of fresh N(0, 1) correlations from "
+         "a reset, late_ms the mean of the last quarter; plain_ms the four "
+         "torch kernels; bound_ms cc, inv and the scores read once (12 "
+         "bytes a voxel), bound_all_written_ms with a score and an index "
+         "written at every voxel (20 bytes)")
+    del cc, inv, kernel, plain
+    torch.cuda.empty_cache()
+    return times
+
+
+def matcher_phase(torch, np, dev, zero_launches, launch_counts):
+    """Phase 4f: ``TemplateMatcher.match`` at tm512's shapes -- a (256,
+    512, 512) tomogram, a 48^3 template under a spherical mask -- in one
+    call of MATCH_CALL orientations from the maps ``reset()`` leaves, the
+    launch counters set to 0 just before it: the update kernel launches
+    once an orientation.  Then the same orientations a call each, every
+    update held bit for bit to the plain version's on the matcher's own
+    correlation and ``1/sigma``.  Returns the call's launches and the
+    largest differences (``score_diff``)."""
+    from voltools_tpu_torch.kernels import match_update as MU
+    from voltools_tpu_torch.models.matching import TemplateMatcher
+    from voltools_tpu_torch.utils import transform_matrix
+    gen = torch.Generator(device=dev).manual_seed(22)
+    rng = np.random.default_rng(22)
+    box = MATCH_BOX
+    g = (torch.arange(box, dtype=torch.float32, device=dev) - box // 2) ** 2
+    r = (g.view(-1, 1, 1) + g.view(1, -1, 1) + g.view(1, 1, -1)).sqrt_()
+    mask = (r <= MATCH_MASK_RADIUS).float()
+    template = torch.randn((box,) * 3, generator=gen, device=dev)
+    tomogram = torch.randn(TOMO_SHAPE, generator=gen, device=dev)
+    matcher = TemplateMatcher(tomogram, template, mask, device=str(dev))
+    del tomogram
+    ms = np.stack([transform_matrix(
+        rotation=tuple(rng.uniform(-180, 180, 3)), rotation_order="rzxz",
+        center=(box // 2,) * 3) for _ in range(MATCH_CALL)]
+    ).astype(np.float32)
+    matcher.match(ms[:1])               # builds kernel A and MU, plans FFTs
+    matcher.reset()
+    torch.cuda.synchronize()
+    zero_launches()
+    matcher.match(ms)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts[MU.NAME] == MATCH_CALL, counts
+    matcher.reset()
+    worst = [0.0, 0, 0]
+    for k, m in enumerate(ms):
+        plain = (matcher.scores.clone(), matcher.indices.clone())
+        matcher.match(m)
+        MU.plain_match_update(matcher._cc, matcher._inv, *plain, k)
+        diff = score_diff(torch, (matcher.scores, matcher.indices), plain)
+        worst = [max(w, d) for w, d in zip(worst, diff)]
+        assert diff == (0.0, 0, 0), ("TemplateMatcher", k, diff)
+    emit("matcher_launches", shape=list(TOMO_SHAPE), box=box,
+         orientations=MATCH_CALL, launches=counts, max_abs_err=worst[0],
+         max_bit_diff=worst[1], index_mismatch=worst[2],
+         method="one TemplateMatcher.match call of the orientations from "
+         "a reset, the counters set to 0 just before it; then each "
+         "orientation in a call of its own, the maps after it against "
+         "plain_match_update of the maps before it on the matcher's own "
+         "correlation (score_diff)")
+    del matcher, plain
+    torch.cuda.empty_cache()
+    return {"launches": counts[MU.NAME], "max_abs_err": worst[0],
+            "max_bit_diff": worst[1], "index_mismatch": worst[2]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -926,6 +1134,7 @@ def main():
     from voltools_tpu_torch.kernels import affine_resample as K
     from voltools_tpu_torch.kernels import affine_slab as S
     from voltools_tpu_torch.kernels import backproject as BP
+    from voltools_tpu_torch.kernels import match_update as MU
     from voltools_tpu_torch.kernels import partial_sample as PS
     from voltools_tpu_torch.kernels import planner
     from voltools_tpu_torch.kernels.layout import pitched
@@ -947,6 +1156,7 @@ def main():
     d1 = PS.partial_sample
     d1_ring = PS.partial_sample_ring
     d2 = PS.partial_project
+    mu = MU.match_update
     D1, D2 = "partial_sample", "partial_project"
     ABC = (S.NAME, K.NAME, BP.NAME)
 
@@ -954,12 +1164,14 @@ def main():
         """Every kernel's launch counter set to 0."""
         walk.launches = slab.launches = bproj.launches = 0
         d1.launches = d1_ring.launches = d2.launches = d2.line_launches = 0
+        mu.launches = 0
 
     def launch_counts():
         """Launches per kernel; D1's are its two entries' together."""
         return {S.NAME: slab.launches, K.NAME: walk.launches,
                 BP.NAME: bproj.launches,
-                D1: d1.launches + d1_ring.launches, D2: d2.launches}
+                D1: d1.launches + d1_ring.launches, D2: d2.launches,
+                MU.NAME: mu.launches}
 
     def entry_counts():
         """D1's launches by entry, D2's on the line path."""
@@ -1015,7 +1227,7 @@ def main():
         """The planner's kernel for each resampling launch, given as
         (matrices, shape, order), and C's ``back_projections``."""
         counts = {S.NAME: 0, K.NAME: 0, BP.NAME: back_projections, D1: 0,
-                  D2: 0}
+                  D2: 0, MU.NAME: 0}
         for ms, shape, order in launches:
             counts[S.NAME if routed(ms, shape, order) is not None
                    else K.NAME] += 1
@@ -1040,7 +1252,7 @@ def main():
 
     # --------------------------------------------------------- 2. build
     # one nvcc per source, all started together
-    kernel_modules = (K, S, BP, PS)
+    kernel_modules = (K, S, BP, PS, MU)
     defines = {BP.NAME: BP.LAYOUT}
     cached = {m.NAME: _build.library_path(
         m.NAME, defines.get(m.NAME)).is_file() for m in kernel_modules}
@@ -1279,6 +1491,11 @@ def main():
 
     # ------------------ 4d. B's row path vs its general kernel, bit for bit
     rows_times = rows_phase(torch, np, dev)
+
+    # ------------- 4e. template matching's update vs its plain version
+    match_times = match_update_phase(torch, np, dev)
+    # ------------------ 4f. TemplateMatcher.match: the update's launches
+    match_path = matcher_phase(torch, np, dev, zero_launches, launch_counts)
 
     # --------------------------- 4b. C vs its plain version, bit for bit
     from voltools_tpu_torch.parallel.sharded import _shifted
@@ -2323,7 +2540,7 @@ def main():
         return body, routes
 
     def counted(routes):
-        n = {S.NAME: 0, K.NAME: 0}
+        n = {S.NAME: 0, K.NAME: 0, MU.NAME: 0}
         for r in routes:
             n[S.NAME if r.plan is not None else K.NAME] += 1
         return n
@@ -2527,7 +2744,8 @@ def main():
     assert err <= RECON_RTOL, ("sirt", err)
     recon_rows["sirt"] = err
     del res, got, sirt_one
-    assert all(v > 0 for v in shard_launches.values()), shard_launches
+    assert all(v > 0 for k, v in shard_launches.items()
+               if k != MU.NAME), shard_launches
     assert S.overflows(dev) == 0
     check_seconds = time.perf_counter() - t0
 
@@ -3159,6 +3377,7 @@ def main():
                 "registration": reg_launches[name],
                 "sharded": shard_launches[name],
                 "examples": example_launches[name]}
+    assert main_tilt[MU.NAME] == 0, main_tilt
     kernels += [{
         "name": D1, "route": "cuda", "source": PS.SOURCE,
         "replaces": PS.REPLACES[D1], "launches": main_tilt[D1],
@@ -3220,6 +3439,31 @@ def main():
         "general_floor_ms": st["d2_general_floor_ms"],
         "tolerance": "sum_order_atol: two orders of a float32 sum; the "
         "line path equal to the general kernel",
+    }, {
+        "name": MU.NAME, "route": "cuda", "source": MU.SOURCE,
+        "replaces": "no TPU kernel (the JAX package has no template "
+        "matching): TemplateMatcher's four torch kernels of the update",
+        "launches": match_path["launches"],
+        "launches_by_path": dict(by_path(MU.NAME),
+                                 match=match_path["launches"]),
+        "max_abs_err": max(match_times["max_abs_err"],
+                           match_path["max_abs_err"]),
+        "max_bit_diff": max(match_times["max_bit_diff"],
+                            match_path["max_bit_diff"]),
+        "index_mismatch": max(match_times["index_mismatch"],
+                              match_path["index_mismatch"]),
+        "ms": match_times["late_ms"], "first_ms": match_times["first_ms"],
+        "plain_ms": match_times["plain_ms"],
+        "bound_ms": match_times["bound_ms"], "bound_by": "bytes",
+        "bound_all_written_ms": match_times["bound_all_written_ms"],
+        "late_improved_share": match_times["late_improved_share"],
+        "library_ms": None, "shape": match_times["shape"],
+        "matrices": "none: a sweep of fresh correlations from a reset, ms "
+        "the last quarter's mean a launch; launches those of one "
+        f"TemplateMatcher.match call of {MATCH_CALL} orientations at the "
+        "tomogram's shape (phase 4f); the errors the largest of phases 4e "
+        "and 4f (score_diff)",
+        "tolerance": "bit for bit (the scores' bit patterns)",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

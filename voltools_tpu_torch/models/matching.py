@@ -22,7 +22,9 @@ each orientation, a 4x4 pull-back matrix about the template's centre
    tomogram's spectrum, ``irfftn``;
 3. ``match.update``: the correlation divided by ``n * sigma_local`` is the
    score; where it is greater than the best so far, the best and the
-   orientation's index are replaced.
+   orientation's index are replaced, in one pass of the update kernel
+   (:mod:`..kernels.match_update`) on the card, which writes only the
+   voxels the orientation changes.
 
 So the score at voxel ``x`` is ``sum_y T(y) V(x + y - c) / (n
 sigma(x))``, ``T`` the normalised template, with ``sigma(x)`` the
@@ -66,6 +68,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels.match_update import match_update
 from ..transforms import _as_tensor, _device
 from ..utils import trace
 from ..volume import StaticVolume
@@ -243,7 +246,6 @@ class TemplateMatcher:
                                    device=dev)
         self._ft = torch.empty_like(self._spectrum)
         self._cc = torch.empty(self.shape, dtype=torch.float32, device=dev)
-        self._better = torch.empty(self.shape, dtype=torch.bool, device=dev)
         self.scores = torch.empty(self.shape, dtype=torch.float32,
                                   device=dev)
         self.indices = torch.empty(self.shape, dtype=torch.int32,
@@ -281,10 +283,8 @@ class TemplateMatcher:
                              out=self._cc)
             trace.count("match.transforms", 2)
         with trace.span("match.update", device=self._dev):
-            self._cc.mul_(self._inv)
-            torch.gt(self._cc, self.scores, out=self._better)
-            torch.maximum(self.scores, self._cc, out=self.scores)
-            self.indices.masked_fill_(self._better, index)
+            match_update(self._cc, self._inv, self.scores, self.indices,
+                         index)
         trace.count("match.orientations")
 
     def _template(self, m: np.ndarray) -> torch.Tensor:

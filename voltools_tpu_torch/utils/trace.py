@@ -350,12 +350,15 @@ def _device_counters() -> dict:
     from ..kernels.affine_resample import fast_path_voxels
     from ..kernels.affine_slab import overflows
     from ..kernels.backproject import window_misses
-    found = {"fast_path_voxels": 0, "overflows": 0, "window_misses": 0}
+    from ..kernels.match_update import improved_voxels
+    found = {"fast_path_voxels": 0, "overflows": 0, "window_misses": 0,
+             "improved_voxels": 0}
     for index in _ANCHORS:
         device = torch.device("cuda", index)
         found["fast_path_voxels"] += fast_path_voxels(device)
         found["overflows"] += overflows(device)
         found["window_misses"] += window_misses(device)
+        found["improved_voxels"] += improved_voxels(device)
     return found
 
 
