@@ -81,8 +81,8 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    (ATOL), in both item orders: the reconstruction's 41-tilt series at
    250^3 in its launches (34 and 7) and at the tomogram's (256, 512,
    512) in the forward's launches of 8, both edges and cvals at 250^3,
-   an odd shape (37, 50, 61) into another output shape; ``row_launches``
-   one a launch; then the device time per tilt of the row path in both
+   an odd shape (37, 50, 61) into another output shape; the row path's
+   launch count (``"affine_slab.rows"``) one a launch; then the device time per tilt of the row path in both
    orders beside the general kernel's and the launches' least time (the
    source read once a launch, every output written once) at 250^3 and at
    the tomogram's shape;
@@ -815,6 +815,20 @@ def profiler_view(torch, fn):
             "raw_device_events": None if raw is None else dict(raw)}
 
 
+def launches_of(*names):
+    """The launches of this process under each of ``names``, from the
+    port's one store of launch counts."""
+    from voltools_tpu_torch.kernels import _build
+    counts = _build.launches()
+    return tuple(counts[name] for name in names)
+
+
+def since(before, *names):
+    """The launches under ``names`` since ``before`` (their
+    :func:`launches_of` then)."""
+    return tuple(n - b for n, b in zip(launches_of(*names), before))
+
+
 def rows_phase(torch, np, dev):
     """Phase 4d: B's row path against its general kernel, bit for bit, and
     against the plain version, in both item orders; then its device time
@@ -829,6 +843,7 @@ def rows_phase(torch, np, dev):
     slab = S.affine_slab
     # the C entry's item_order: x segment first, or matrix first
     orders = {"segments": 1, "matrices": 0}
+    rows_entry = S.LIBRARY.launcher("affine_rows_launch")
     rows = []
 
     def in_order(vol, ms_dev, order, mode="constant", cval=0.0,
@@ -838,12 +853,11 @@ def rows_phase(torch, np, dev):
         out_shape = tuple(out_shape or vol.shape)
         if out is None:
             out = torch.empty((len(ms_dev),) + out_shape, device=dev)
-        code = S._library().affine_rows_launch(
-            vol.data_ptr(), *vol.shape, row_pitch(vol), ms_dev.data_ptr(),
-            len(ms_dev), out.data_ptr(), *out_shape, S._MODES[mode],
-            float(cval), orders[order], S._counter(dev).data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-        assert code == 0, (order, code)
+        rows_entry(
+            dev, vol.data_ptr(), *vol.shape, row_pitch(vol),
+            ms_dev.data_ptr(), len(ms_dev), out.data_ptr(), *out_shape,
+            S._MODES[mode], float(cval), orders[order],
+            S.LIBRARY.counter("overflows", dev).data_ptr())
         return out
 
     def check(name, vol, ms, mode="constant", cval=0.0, out_shape=None):
@@ -855,10 +869,10 @@ def rows_phase(torch, np, dev):
         want = slab(vol, ms_dev, 1, mode, cval, out_shape, plan=plan,
                     _force_general=True)
         worst = 0.0
-        before = (slab.launches, slab.row_launches)
+        names = ("affine_slab", "affine_slab.rows")
+        before = launches_of(*names)
         got = slab(vol, ms_dev, 1, mode, cval, out_shape, plan=plan)
-        assert (slab.launches - before[0],
-                slab.row_launches - before[1]) == (1, 1), name
+        assert since(before, *names) == (1, 1), name
         assert torch.equal(got, want), (name, mode, cval)
         del got
         for order in orders:
@@ -981,7 +995,7 @@ def match_update_phase(torch, np, dev):
     ccs[5].masked_fill_(torch.rand(shape, generator=gen, device=dev) < 0.01,
                         float("nan"))
     kernel, plain = fresh(), fresh()
-    launches = MU.match_update.launches
+    launches = launches_of("match_update")
     rows = []
     worst = [0.0, 0, 0]
     for k, cc in enumerate(ccs):
@@ -997,7 +1011,7 @@ def match_update_phase(torch, np, dev):
         changed = int((kernel[1] != before_indices).sum())
         assert improved == changed, (k, improved, changed)
         rows.append({"orientation": k, "improved_share": improved / n})
-    assert MU.match_update.launches - launches == MATCH_RUN
+    assert since(launches, "match_update") == (MATCH_RUN,)
     nan = int(torch.isnan(kernel[0]).sum())
     negative_zero = int(((kernel[0] == 0)
                          & torch.signbit(kernel[0])).sum())
@@ -1154,29 +1168,25 @@ def main():
     slab = S.affine_slab
     bproj = BP.backproject
     d1 = PS.partial_sample
-    d1_ring = PS.partial_sample_ring
     d2 = PS.partial_project
-    mu = MU.match_update
     D1, D2 = "partial_sample", "partial_project"
     ABC = (S.NAME, K.NAME, BP.NAME)
 
-    def zero_launches():
-        """Every kernel's launch counter set to 0."""
-        walk.launches = slab.launches = bproj.launches = 0
-        d1.launches = d1_ring.launches = d2.launches = d2.line_launches = 0
-        mu.launches = 0
+    zero_launches = _build.reset_launches
 
     def launch_counts():
-        """Launches per kernel; D1's are its two entries' together."""
-        return {S.NAME: slab.launches, K.NAME: walk.launches,
-                BP.NAME: bproj.launches,
-                D1: d1.launches + d1_ring.launches, D2: d2.launches,
-                MU.NAME: mu.launches}
+        """Launches per kernel, from the store's counts of whole launches
+        (not those of a path, "<name>.<path>"); D1's are its two entries'
+        together."""
+        n = {k: v for k, v in _build.launches().items() if "." not in k}
+        n[D1] += n.pop("partial_sample_ring")
+        return n
 
     def entry_counts():
         """D1's launches by entry, D2's on the line path."""
-        return {"d1_ring": d1_ring.launches, "d1_step": d1.launches,
-                "d2_line": d2.line_launches}
+        n = _build.launches()
+        return {"d1_ring": n["partial_sample_ring"], "d1_step": n[D1],
+                "d2_line": n["partial_project.line"]}
 
     def row_gather_against_baseline(projs, minv, shape, reps):
         """C's row-gather call (the wrapper: its pitched copy and launch)
@@ -1253,9 +1263,8 @@ def main():
     # --------------------------------------------------------- 2. build
     # one nvcc per source, all started together
     kernel_modules = (K, S, BP, PS, MU)
-    defines = {BP.NAME: BP.LAYOUT}
     cached = {m.NAME: _build.library_path(
-        m.NAME, defines.get(m.NAME)).is_file() for m in kernel_modules}
+        m.NAME, m.LIBRARY.defines).is_file() for m in kernel_modules}
 
     def build_baseline(source, name):
         """A kernel before its redesign, timed beside it (C's in phase 7,
@@ -1280,19 +1289,19 @@ def main():
                                      "backproject_baseline")
         d_baseline_build = pool.submit(build_baseline, D_BASELINE_SOURCE,
                                        "partial_sample_baseline")
-        list(pool.map(lambda m: _build.build(m.NAME, defines.get(m.NAME)),
+        list(pool.map(lambda m: _build.build(m.NAME, m.LIBRARY.defines),
                       kernel_modules))
         baseline_lib, baseline_seconds, baseline_log = baseline_build.result()
         d_baseline_lib, d_baseline_seconds, d_baseline_log = \
             d_baseline_build.result()
     for m in kernel_modules:
-        m._library()
+        m.LIBRARY.lib()
     wall = time.perf_counter() - t0
     for m in kernel_modules:
         seconds, log = _build.BUILD_LOG.get(m.NAME, (None, ""))
         emit("build", source=m.SOURCE, seconds=seconds,
              built_now=not cached[m.NAME], wall_seconds_all=wall,
-             flags=" ".join(_build.flags(defines.get(m.NAME))),
+             flags=" ".join(_build.flags(m.LIBRARY.defines)),
              ptxas=[ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln])
     for source, seconds, log in (
@@ -1625,10 +1634,10 @@ def main():
             for name, m in zip(("random_0", "random_1", "half_voxel_shift",
                                 "scale_past_the_edges"), ms):
                 # the ring entry, one launch a shard, through the body
-                before = (d1_ring.launches, d1.launches)
+                names = ("partial_sample_ring", "partial_sample")
+                before = launches_of(*names)
                 got = sv._stream_body(m)
-                assert (d1_ring.launches - before[0],
-                        d1.launches - before[1]) == (SHARDS, 0)
+                assert since(before, *names) == (SHARDS, 0)
                 want = sv._stream_body(m, plain=True)
                 err = max(float((g - w).abs().max())
                           for g, w in zip(got, want))
@@ -1649,7 +1658,7 @@ def main():
                                    float((acc - want[i]).abs().max()))
                     assert torch.equal(acc, want[i]), (
                         shape, interp, mode, name, "per step", i, step_err)
-                assert d1.launches - before[1] == SHARDS * SHARDS
+                assert since(before, *names) == (SHARDS, SHARDS * SHARDS)
                 ps_rows.append({"shape": list(shape), "local": local,
                                 "pad": sv._pad, "order": order,
                                 "mode": mode, "cval": cval, "matrix": name,
@@ -1675,10 +1684,10 @@ def main():
         for i in range(SHARDS):
             x = vol[i * local:(i + 1) * local]
             off = float(np.float32(i * local))
-            before = (d2.launches, d2.line_launches)
+            names = ("partial_project", "partial_project.line")
+            before = launches_of(*names)
             got = d2(x, ms, off, shape, axis)
-            assert (d2.launches - before[0],
-                    d2.line_launches - before[1]) == (1, int(line))
+            assert since(before, *names) == (1, int(line))
             # the line path against the general kernel, bit for bit
             general = d2(x, ms, off, shape, axis, _force_general=True) \
                 if line else got

@@ -24,7 +24,7 @@ import voltools_tpu as jvt
 import voltools_tpu_torch as tvt
 from voltools_tpu.utils import transform_matrix
 from voltools_tpu_torch.convert import from_state
-from voltools_tpu_torch.kernels.affine_resample import affine_resample
+from voltools_tpu_torch.kernels import _build
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPE = (17, 19, 23)
@@ -217,10 +217,10 @@ def test_static_volume_output_contract(vol):
     m = rotations(1, seed=7)[0]
     want = sv.affine(m)
     out = torch.full(SHAPE, -1.0)
-    before = affine_resample.launches
+    before = _build.launches()["affine_resample"]
     assert sv.affine(m, output=out) is out
     np.testing.assert_array_equal(out.numpy(), want)
-    assert affine_resample.launches == before
+    assert _build.launches()["affine_resample"] == before
     with pytest.raises(ValueError):
         sv.affine(m, output=torch.empty((2, 2, 2)))
     with pytest.raises(ValueError):

@@ -30,7 +30,7 @@ torch = pytest.importorskip("torch")
 import numpy as np
 
 from voltools_tpu.models.reconstruction import _make_adjoint as jax_adjoint
-from voltools_tpu_torch.kernels import backproject as bp
+from voltools_tpu_torch.kernels import _build, backproject as bp
 from voltools_tpu_torch.models.reconstruction import _make_adjoint
 from voltools_tpu_torch.parallel.sharded import _shifted
 
@@ -219,13 +219,13 @@ def test_row_gather_decision_is_the_jax_one(force_general):
 def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
     projs, minv, keep = _series(SHAPE, 1, 7, "rowgather", seed=2)
     t = torch.from_numpy(projs)
-    before = bp.backproject.launches
+    before = _build.launches()["backproject"]
     for rowgather in (None, True, False):
         got = bp.backproject(t, minv, keep, SHAPE, rowgather)
         assert got.is_contiguous() and got.dtype == torch.float32
         assert torch.equal(got, bp.plain_backproject(t, minv, keep, SHAPE,
                                                      rowgather))
-    assert bp.backproject.launches == before
+    assert _build.launches()["backproject"] == before
 
 
 def test_wrapper_checks():

@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 import numpy as np
 
 import voltools_tpu_torch as vt
+from voltools_tpu_torch.kernels import _build
 from voltools_tpu_torch.kernels.affine_resample import (DEEP_PATCH,
                                                         FLAT_PATCH,
                                                         affine_resample,
@@ -27,7 +28,7 @@ from voltools_tpu_torch.kernels.backproject import (backproject,
                                                     row_gather)
 from voltools_tpu_torch.kernels.layout import pitched, tma_ready
 from voltools_tpu_torch.kernels.partial_sample import (
-    RING_CAPACITY, _library as partial_library, line_axis, partial_project,
+    RING_CAPACITY, LIBRARY as partial_library, line_axis, partial_project,
     partial_sample, partial_sample_ring, plain_partial_project,
     plain_partial_ring, sum_order_atol)
 from voltools_tpu_torch.kernels.planner import (BRICK, SMEM_BUDGET, SlabPlan,
@@ -49,6 +50,12 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda", 0)
+
+
+def _launched(*names):
+    """The launches of this process under each of ``names``."""
+    counts = _build.launches()
+    return tuple(counts[name] for name in names)
 
 
 def matrices(shape, seed):
@@ -82,11 +89,11 @@ def test_kernel_matches_plain_version(dev, shape, mode, order):
 def test_launch_counter_and_out_buffer(dev):
     vol = torch.rand((12, 13, 14), device=dev)
     ms = matrices((12, 13, 14), seed=1).to(dev)
-    before = affine_resample.launches
+    before = _build.launches()["affine_resample"]
     out = torch.empty((12, 13, 14), device=dev)
     assert affine_resample(vol, ms[0], 3, out=out) is out
     stack = affine_resample(vol, ms, 3)
-    assert affine_resample.launches == before + 2
+    assert _build.launches()["affine_resample"] == before + 2
     torch.cuda.synchronize()
     assert torch.equal(out, stack[0])
 
@@ -184,11 +191,11 @@ def test_slab_batch_counter_and_out_buffer(dev):
     ms = matrices(shape, seed=1)
     plan = slab_plan(ms.numpy(), shape, "bspline")
     ms = ms.to(dev)
-    before = affine_slab.launches
+    before = _build.launches()["affine_slab"]
     out = torch.empty(shape, device=dev)
     assert affine_slab(vol, ms[0], 3, out=out) is out    # plans here
     stack = affine_slab(vol, ms, 3, plan=plan)
-    assert affine_slab.launches == before + 2
+    assert _build.launches()["affine_slab"] == before + 2
     torch.cuda.synchronize()
     assert torch.equal(out, stack[0])
     assert torch.equal(stack, affine_resample(vol, ms, 3))
@@ -225,10 +232,10 @@ def test_projector_and_reconstruction_on_cuda_match_cpu(dev, interpolation):
     gpu = TiltSeriesProjector(vol, interpolation, device="cuda")
     cpu = TiltSeriesProjector(vol, interpolation, device="cpu")
     assert tma_ready(gpu.data)
-    before = affine_slab.launches + affine_resample.launches
+    before = sum(_launched("affine_slab", "affine_resample"))
     p_gpu = gpu.project(angles, tilt_axis=0, output="device")
     assert p_gpu.is_cuda
-    assert affine_slab.launches + affine_resample.launches == before + 1
+    assert sum(_launched("affine_slab", "affine_resample")) == before + 1
     p_cpu = cpu.project(angles, tilt_axis=0)
     # each projection sums 20 voxels that agree to ATOL
     np.testing.assert_allclose(p_gpu.cpu().numpy(), p_cpu, atol=20 * ATOL)
@@ -509,9 +516,9 @@ def test_cpu_backend_with_a_cuda_device_raises(dev):
 def test_registration_result_apply_launches_kernel_a(dev):
     mov, ref = _registration_pair((24, 24, 24), seed=13)
     res = register(mov, ref, model="rigid", steps=20, device="cuda")
-    before = (affine_resample.launches, affine_slab.launches)
+    before = _launched("affine_resample", "affine_slab")
     out = res.apply(mov, device="cuda", output="device")
-    assert (affine_resample.launches, affine_slab.launches) == (
+    assert _launched("affine_resample", "affine_slab") == (
         before[0] + 1, before[1])
     assert vt.last_dispatch()["impl"] == "cuda"
     want = affine_sample(torch.from_numpy(mov).to(dev),
@@ -549,17 +556,15 @@ def test_sharded_volume_on_a_4_shard_mesh(dev, shape, interpolation, mode):
         sv = ShardedVolume(vol, interpolation, mesh=_mesh4(dev), mode=mode,
                            cval=1.5, global_strategy=strategy)
         for m, atol in ((local_m, 3e-5), (global_m, 5e-4)):
-            before = affine_resample.launches + affine_slab.launches
-            before_d1 = partial_sample.launches
-            before_ring = partial_sample_ring.launches
+            names = ("affine_resample", "affine_slab", "partial_sample",
+                     "partial_sample_ring")
+            before = _launched(*names)
             slabs = sv.affine(m, output="device")
-            launched = affine_resample.launches + affine_slab.launches \
-                - before
+            walk, slab, d1, ring = np.subtract(_launched(*names), before)
             global_stream = m is global_m and strategy == "stream"
-            assert launched == (0 if global_stream else 4)
-            assert partial_sample.launches == before_d1
-            assert partial_sample_ring.launches - before_ring == (
-                4 if global_stream else 0)
+            assert walk + slab == (0 if global_stream else 4)
+            assert d1 == 0
+            assert ring == (4 if global_stream else 0)
             assert all(s.device == dev for s in slabs)
             got = torch.cat(slabs)
             want = single.affine(m, output="device")
@@ -604,13 +609,14 @@ def test_sharded_batch_and_reconstructions_on_a_4_shard_mesh(dev):
         res = wbp_reconstruct(p, ms, shape, mesh=mesh, mesh_shard=mesh_shard)
         one = wbp_reconstruct(p, ms, shape, device="cuda")
         assert np.abs(res - one).max() <= 1e-4 * np.abs(one).max()
-    before = partial_project.launches
-    before_line = partial_project.line_launches
+    before = _build.launches()["partial_project"]
+    before_line = _build.launches()["partial_project.line"]
     res = sirt_reconstruct(p, ms, shape, iterations=3, mesh=mesh)
     # D2 once per shard for the row sums and for each iteration's forward,
     # every launch on the line path (a tilt about array axis 2)
-    assert partial_project.launches - before == 4 * (1 + 3)
-    assert partial_project.line_launches - before_line == 4 * (1 + 3)
+    assert _build.launches()["partial_project"] - before == 4 * (1 + 3)
+    assert _build.launches()["partial_project.line"] - before_line == \
+        4 * (1 + 3)
     one = sirt_reconstruct(p, ms, shape, iterations=3, device="cuda",
                            _plain_forward=True)
     assert np.abs(res - one).max() <= 1e-4 * np.abs(one).max()
@@ -639,9 +645,9 @@ def test_stream_body_equals_its_plain_version(dev, shape, mode, cval,
               translation_matrix((0.5, 0.25, -0.5)),
               transform_matrix(scale=(1.2, 0.85, 1.1), center=center)):
         m = np.asarray(m, np.float32)
-        before = partial_sample_ring.launches
+        before = _build.launches()["partial_sample_ring"]
         got = sv._stream_body(m)
-        assert partial_sample_ring.launches - before == 4
+        assert _build.launches()["partial_sample_ring"] - before == 4
         want = sv._stream_body(m, plain=True)
         for g, w in zip(got, want):
             assert torch.equal(g, w), float((g - w).abs().max())
@@ -669,9 +675,9 @@ def test_partial_project_within_the_sum_order_bound(dev, shape,
     for i in range(4):
         x = torch.from_numpy(vol[i * local:(i + 1) * local].copy()).to(dev)
         off = float(np.float32(i * local))
-        before = partial_project.launches
+        before = _build.launches()["partial_project"]
         got = partial_project(x, ms, off, shape, projection_axis)
-        assert partial_project.launches - before == 1
+        assert _build.launches()["partial_project"] - before == 1
         want = plain_partial_project(x, ms, off, shape, projection_axis)
         largest = float(plain_partial_project(x.abs(), ms, off, shape,
                                               projection_axis).max())
@@ -706,7 +712,7 @@ def test_d1_entries_equal_the_plain_chain(dev, entry, shape, mode, cval,
             m_dev = _shifted(np.asarray(m, np.float32), np.float32(i * local))
             ring = [(i - k) % 4 for k in range(4)]
             z0s = [j * local for j in ring]
-            before = (partial_sample_ring.launches, partial_sample.launches)
+            before = _launched("partial_sample_ring", "partial_sample")
             if entry == "ring":
                 got = partial_sample_ring([slabs[j] for j in ring], z0s,
                                           m_dev, shape, order, mode,
@@ -716,8 +722,8 @@ def test_d1_entries_equal_the_plain_chain(dev, entry, shape, mode, cval,
                 for k, j in enumerate(ring):
                     partial_sample(slabs[j], m_dev, z0s[k], shape, order,
                                    mode, got, k == 3, cval)
-            assert (partial_sample_ring.launches - before[0],
-                    partial_sample.launches - before[1]) == (
+            assert tuple(np.subtract(_launched(
+                "partial_sample_ring", "partial_sample"), before)) == (
                 (1, 0) if entry == "ring" else (0, 4))
             want = plain_partial_ring([slabs[j] for j in ring], z0s, m_dev,
                                       shape, order, mode, out_shape, cval)
@@ -739,12 +745,13 @@ def test_d1_ring_capacity(dev):
         partial_sample_ring([slab] * n, [0] * n, m, (2, 4, 4), 1, "constant",
                             (2, 4, 4))
     out = torch.empty((2, 4, 4), device=dev)
-    code = partial_library().partial_sample_ring_launch(
-        (ctypes.c_void_p * n)(*[slab.data_ptr()] * n), (ctypes.c_int * n)(),
-        n, 2, 2, 4, 4, np.ascontiguousarray(m[:3]).ctypes.data,
-        out.data_ptr(), 2, 4, 4, 1, 0, 0.0,
-        torch.cuda.current_stream().cuda_stream)
-    assert code != 0
+    # the C entry itself, past the wrapper's check: it fails the launch
+    ring_entry = partial_library.launcher("partial_sample_ring_launch")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ring_entry(dev, (ctypes.c_void_p * n)(*[slab.data_ptr()] * n),
+                   (ctypes.c_int * n)(), n, 2, 2, 4, 4,
+                   np.ascontiguousarray(m[:3]).ctypes.data, out.data_ptr(),
+                   2, 4, 4, 1, 0, 0.0)
 
 
 def _single_axis_series(shape, order, position):
@@ -783,12 +790,12 @@ def test_partial_project_line_path(dev, shape, projection_axis, order,
     for i in range(4):
         x = torch.from_numpy(vol[i * local:(i + 1) * local].copy()).to(dev)
         off = float(np.float32(i * local))
-        before = (partial_project.launches, partial_project.line_launches)
+        before = _launched("partial_project", "partial_project.line")
         got = partial_project(x, ms, off, shape, projection_axis)
         general = partial_project(x, ms, off, shape, projection_axis,
                                   _force_general=True)
-        assert (partial_project.launches - before[0],
-                partial_project.line_launches - before[1]) == (2, 1)
+        assert tuple(np.subtract(_launched(
+            "partial_project", "partial_project.line"), before)) == (2, 1)
         assert torch.equal(got, general), float((got - general).abs().max())
         want = plain_partial_project(x, ms, off, shape, projection_axis)
         largest = float(plain_partial_project(x.abs(), ms, off, shape,
@@ -838,13 +845,13 @@ def test_backproject_equals_plain_version(dev, path, projection_axis, shape):
     # a shard's 3 planes from plane 2: the offset folded into column 3
     shifted = minv.copy()
     shifted[:, :, 3] += minv[:, :, 0] * np.float32(2)
-    before = backproject.launches
+    before = _build.launches()["backproject"]
     for mv, out_shape in ((minv, shape), (shifted, (3,) + shape[1:])):
         got = backproject(projs, mv, keep, out_shape, rowgather)
         assert got.is_cuda and got.shape == out_shape
         want = plain_backproject(projs, mv, keep, out_shape, rowgather)
         assert torch.equal(got, want), float((got - want).abs().max())
-    assert backproject.launches == before + 2
+    assert _build.launches()["backproject"] == before + 2
 
 
 def test_backproject_on_a_side_stream_and_the_last_card(dev):
@@ -893,11 +900,11 @@ def test_reconstructions_launch_backproject_and_equal_its_plain_version(dev):
          4 * (1 + 3)),
     ]
     for call, launches in calls:
-        before = backproject.launches
+        before = _build.launches()["backproject"]
         got = call()
-        assert backproject.launches == before + launches
+        assert _build.launches()["backproject"] == before + launches
         want = call(_plain_adjoint=True)
-        assert backproject.launches == before + launches
+        assert _build.launches()["backproject"] == before + launches
         assert torch.equal(got, want)
 
 
@@ -924,9 +931,9 @@ def test_backproject_tiles_equal_plain_at_ragged_shapes(dev, shape):
     minv[3, 1, 3] += np.float32(0.4 * shape[1])     # partly off
     minv[5, 1, 3] = np.float32(-1e10)               # wholly off
     misses = bp.window_misses(dev)
-    before = backproject.launches
+    before = _build.launches()["backproject"]
     got = backproject(projs, minv, [1, 2], shape)
-    assert backproject.launches == before + 1
+    assert _build.launches()["backproject"] == before + 1
     want = plain_backproject(projs, minv, [1, 2], shape, True)
     assert torch.equal(got, want), float((got - want).abs().max())
     assert bp.window_misses(dev) == misses

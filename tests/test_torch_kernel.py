@@ -73,12 +73,13 @@ def mats():
                                                  (3, "bspline")])
 def test_cpu_tensors_run_the_plain_version(volume, mats, order,
                                            interpolation, mode):
-    before = affine_resample.launches
+    before = _build.launches()["affine_resample"]
     got = affine_resample(volume, mats[0], order, mode, 1.5)
     want = affine_sample(volume, mats[0], interpolation, mode, 1.5,
                          prefiltered=True)
     assert torch.equal(got, want)
-    assert affine_resample.launches == before, "the CPU path launches nothing"
+    assert _build.launches()["affine_resample"] == before, \
+        "the CPU path launches nothing"
 
 
 def test_batch_matches_single_launches(volume, mats):
@@ -140,10 +141,10 @@ BAD_CASES = list(_bad_arguments(torch.zeros((2, 2, 2)),
 def test_rejects_bad_arguments(volume, mats, case):
     kwargs = dict(volume=volume, matrices=mats[0], order=1, mode="constant")
     kwargs.update(_bad_arguments(volume, mats)[case])
-    before = affine_resample.launches
+    before = _build.launches()["affine_resample"]
     with pytest.raises((ValueError, TypeError)):
         affine_resample(**kwargs)
-    assert affine_resample.launches == before
+    assert _build.launches()["affine_resample"] == before
 
 
 def test_cuda_source_and_build_settings():
@@ -169,10 +170,12 @@ def test_nothing_is_built_or_loaded_at_import():
         "real = subprocess.run\n"
         "subprocess.run = lambda *a, **k: calls.append(a) or real(*a, **k)\n"
         "import voltools_tpu_torch\n"
-        "from voltools_tpu_torch.kernels import _build, affine_resample as k\n"
+        "from voltools_tpu_torch.kernels import affine_resample as k\n"
+        "from voltools_tpu_torch.utils import trace\n"
         "assert not calls, calls\n"
-        "assert not _build._LOADED\n"
-        "assert k._library.cache_info().currsize == 0\n"
+        "assert k.LIBRARY._lib is None\n"
+        "assert not [c for c in trace.counts()\n"
+        "            if c.startswith(('load.', 'build.'))]\n"
         "assert 'triton' not in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

@@ -28,7 +28,7 @@ import pytest
 import torch
 
 from voltools_tpu_torch import TemplateMatcher
-from voltools_tpu_torch.kernels import match_update as mu
+from voltools_tpu_torch.kernels import _build, match_update as mu
 
 SHAPE = (5, 7, 9)          # 315 voxels: not a multiple of 4
 RUN = 8                    # orientations of a run
@@ -123,12 +123,12 @@ def test_the_plain_version_is_the_four_ops(name, update):
     four_ops(cc, inv, *want, index)
     got = (scores.clone(), indices.clone())
     kept = cc.clone()
-    launches = mu.match_update.launches
+    launches = _build.launches()["match_update"]
     fn = mu.plain_match_update if update == "plain" else mu.match_update
     fn(cc, inv, *got, index)
     assert_same(got, want)
     assert torch.equal(cc.view(torch.int32), kept.view(torch.int32))
-    assert mu.match_update.launches == launches
+    assert _build.launches()["match_update"] == launches
 
 
 def test_the_plain_version_over_a_run_of_orientations():
@@ -262,7 +262,7 @@ def test_on_the_card_a_run_of_orientations(dev, shape):
     ccs, inv = run_inputs(shape)
     inv = inv.to(dev)
     plain, kernel = fresh(shape, dev), fresh(shape, dev)
-    launches = mu.match_update.launches
+    launches = _build.launches()["match_update"]
     for k, cc in enumerate(ccs):
         cc = cc.to(dev)
         mu.plain_match_update(cc, inv, *plain, k)
@@ -273,7 +273,7 @@ def test_on_the_card_a_run_of_orientations(dev, shape):
         # the count is the voxels whose index the launch replaced
         assert mu.improved_voxels(dev) - before == int(
             (kernel[1] != before_indices).sum())
-    assert mu.match_update.launches - launches == RUN
+    assert _build.launches()["match_update"] - launches == RUN
 
 
 @pytest.mark.cuda
@@ -295,14 +295,14 @@ def test_on_the_card_match_launches_the_kernel_without_a_sync(dev):
     tm.match(ms[:1])                      # builds the kernels
     tm.reset()
     torch.cuda.synchronize()
-    launches = mu.match_update.launches
+    launches = _build.launches()["match_update"]
     before = mu.improved_voxels(dev)
     torch.cuda.set_sync_debug_mode("error")
     try:
         tm.match(ms)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert mu.match_update.launches - launches == len(ms)
+    assert _build.launches()["match_update"] - launches == len(ms)
     scores, indices = tm.result()
     # one orientation four times: the first scores every voxel, the ties
     # after it keep its index

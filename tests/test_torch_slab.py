@@ -107,11 +107,12 @@ def test_plain_version_matches_tpu_select_tree_kernel(volume, case, mode):
                                                    interpret=True))
     plan = slab_plan(m, SHAPE, "linear", mode)
     assert plan is not None
-    before = affine_slab.launches
+    before = _build.launches()["affine_slab"]
     got = affine_slab(torch.from_numpy(volume),
                       torch.from_numpy(np.asarray(m, np.float32)), 1, mode,
                       plan=plan).numpy()
-    assert affine_slab.launches == before, "the CPU path launches nothing"
+    assert _build.launches()["affine_slab"] == before, \
+        "the CPU path launches nothing"
     assert_close_off_edges(got, want, m)
 
 
@@ -214,9 +215,9 @@ def test_nothing_is_built_or_loaded_at_import():
         "import voltools_tpu_torch, voltools_tpu_torch.models\n"
         "from voltools_tpu_torch.kernels import _build, affine_slab as k\n"
         "assert not calls, calls\n"
-        "assert not _build._LOADED\n"
-        "assert k._library.cache_info().currsize == 0\n"
-        "assert not k._OVERFLOWS\n")
+        "assert all(x._lib is None for x in _build._LIBRARIES)\n"
+        "assert k.LIBRARY in _build._LIBRARIES\n"
+        "assert not _build._COUNTERS\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -34,7 +34,7 @@ import numpy as np
 
 from portbench.traffic import tilt_series as cell_tilt_series
 from voltools_tpu_torch import transforms as tvt
-from voltools_tpu_torch.kernels import partial_sample, planner
+from voltools_tpu_torch.kernels import _build, partial_sample, planner
 from voltools_tpu_torch.kernels.affine_slab import affine_slab
 from voltools_tpu_torch.kernels.planner import (ROW_AXIS, SlabPlan,
                                                 _leaves_alone, route,
@@ -222,7 +222,7 @@ def test_route_counter_counts_row_launches():
         "route.kernel_b.rows", 0) == 1
     # the CPU path launches nothing
     assert after["launches.affine_slab.rows"] == before[
-        "launches.affine_slab.rows"] == affine_slab.row_launches
+        "launches.affine_slab.rows"] == _build.launches()["affine_slab.rows"]
 
 
 # --------------------------------------------- the wrapper on the CPU
@@ -310,12 +310,13 @@ def _rows_equal_general(dev, shape, ms, mode="constant", cval=0.0,
     plan = route(ms, shape, "linear", mode, out_shape).plan
     assert plan is not None and plan.rows
     ms_dev = torch.from_numpy(ms).to(dev)
-    before = (affine_slab.launches, affine_slab.row_launches)
+    before = _build.launches()
     got = affine_slab(vol, ms_dev, 1, mode, cval, out_shape, plan=plan)
     want = affine_slab(vol, ms_dev, 1, mode, cval, out_shape, plan=plan,
                        _force_general=True)
-    assert (affine_slab.launches - before[0],
-            affine_slab.row_launches - before[1]) == (2, 1)
+    after = _build.launches()
+    assert (after["affine_slab"] - before["affine_slab"],
+            after["affine_slab.rows"] - before["affine_slab.rows"]) == (2, 1)
     assert torch.equal(got, want)
     for i in range(0, len(ms), plain_every or len(ms)):
         torch.testing.assert_close(got[i], affine_sample(
@@ -348,12 +349,11 @@ def _rows_in_order(vol, ms_dev, item_order, out_shape=None):
     from voltools_tpu_torch.kernels.layout import row_pitch
     out_shape = tuple(out_shape or vol.shape)
     out = torch.empty((len(ms_dev),) + out_shape, device=vol.device)
-    code = slab_module._library().affine_rows_launch(
-        vol.data_ptr(), *vol.shape, row_pitch(vol), ms_dev.data_ptr(),
-        len(ms_dev), out.data_ptr(), *out_shape, 0, 0.0, item_order,
-        slab_module._counter(vol.device).data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
-    assert code == 0
+    slab_module.LIBRARY.launcher("affine_rows_launch")(
+        vol.device, vol.data_ptr(), *vol.shape, row_pitch(vol),
+        ms_dev.data_ptr(), len(ms_dev), out.data_ptr(), *out_shape, 0, 0.0,
+        item_order,
+        slab_module.LIBRARY.counter("overflows", vol.device).data_ptr())
     return out
 
 
@@ -421,11 +421,11 @@ def test_boxes_over_tma_on_the_card(dev, case):
     shape = (300, 300, 12)
     ms = _over_tma(case, shape)
     vol = np.random.default_rng(5).random(shape).astype(np.float32)
-    before = affine_slab.row_launches
+    before = _build.launches()["affine_slab.rows"]
     got = StaticVolume(vol, "linear", device="cuda").affine_batch(
         ms, output="device")
     assert tvt.last_dispatch()["rule"] == "rows"
-    assert affine_slab.row_launches - before == 1
+    assert _build.launches()["affine_slab.rows"] - before == 1
     want = affine_resample(pitched(torch.from_numpy(vol).to(dev)),
                            torch.from_numpy(ms).to(dev), 1)
     assert torch.equal(got, want)
@@ -467,12 +467,12 @@ def test_row_launches_are_counted(dev):
     shape = (40, 48, 56)
     vol = np.random.default_rng(4).random(shape).astype(np.float32)
     tp = TiltSeriesProjector(vol, "linear", device="cuda")
-    before = affine_slab.row_launches
+    before = _build.launches()["affine_slab.rows"]
     tp.project(ANGLES, tilt_axis=0, output="device")
     chunks = -(-len(ANGLES) // StaticVolume.batch_chunk(shape))
-    assert affine_slab.row_launches - before == chunks
+    assert _build.launches()["affine_slab.rows"] - before == chunks
     sv = StaticVolume(vol, "linear", device="cuda")
-    before = affine_slab.row_launches
+    before = _build.launches()["affine_slab.rows"]
     sv.affine_batch(_random_rotations(shape), output="device")
     tp.project(ANGLES, tilt_axis=1, output="device")
-    assert affine_slab.row_launches == before
+    assert _build.launches()["affine_slab.rows"] == before

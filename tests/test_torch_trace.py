@@ -277,11 +277,16 @@ def test_counters_lose_no_update_across_threads():
 
 def test_builds_and_loads_are_read_from_the_build_state(monkeypatch):
     from voltools_tpu_torch.kernels import _build
-    monkeypatch.setattr(_build, "_LOADED", {"a": object(), "b": object()})
-    monkeypatch.setattr(_build, "BUILD_LOG", {"b": (1.0, "")})
+    a, b, *others = _build._LIBRARIES
+    for library in others:
+        monkeypatch.setattr(library, "_lib", None)
+    monkeypatch.setattr(a, "_lib", object())
+    monkeypatch.setattr(b, "_lib", object())
+    monkeypatch.setattr(_build, "BUILD_LOG", {b.name: (1.0, "")})
     found = {k: v for k, v in trace.counts().items()
              if k.startswith(("load.", "build."))}
-    assert found == {"load.a": 1, "load.b": 1, "build.b": 1}
+    assert found == {f"load.{a.name}": 1, f"load.{b.name}": 1,
+                     f"build.{b.name}": 1}
 
 
 def _synthetic(host, device, windows):

@@ -143,9 +143,10 @@ def cells(args):
                 idle["idle_s"].items(), key=lambda kv: -kv[1])},
             "device_us": device,    # us and intervals a call, by span
             "counts": prog["counts"],
-            "device_counters": {k: prog["export"]["otherData"]["counters"][k]
-                                for k in ("fast_path_voxels", "overflows",
-                                          "window_misses")}}
+            # the export's counters that the device readers add
+            "device_counters": {
+                k: v for k, v in prog["export"]["otherData"][
+                    "counters"].items() if k not in trace.counts()}}
         (out / f"trace_{name}.json").write_text(json.dumps(prog["export"]))
         print(json.dumps(line), flush=True)
         driver.release()

@@ -9,6 +9,10 @@ the source, the shared headers (``csrc/*.cuh``) and the flags, so a changed
 source or header is rebuilt and an unchanged one is reused by later
 processes.  A kernel whose layout the host also needs takes it as ``-D``
 flags from its wrapper's table (``defines``), so the two never disagree.
+
+The one seam between Python and a library: each wrapper declares its
+:class:`Library` at import and launches through its launchers; the launch
+counts and the device counters live here, and the tracer reads them.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 from ..utils import trace
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -33,9 +39,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
-_LOADED: dict = {}
 # per source name: (seconds the build took, nvcc's output) of this process
 BUILD_LOG: dict = {}
+_LIBRARIES: list = []        # every Library declared, in import order
+_LAUNCHES: dict = {}         # launch count name -> launches in this process
+_COUNTERS: dict = {}         # (library, counter, device index) -> tensor
 
 
 def nvcc_path() -> str:
@@ -117,17 +125,106 @@ def build(name: str, defines=None) -> Path:
     return target
 
 
-def load(name: str, defines=None) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` built with ``defines``,
-    built on first use."""
-    span = trace.span("build")
-    with span, _LOCK:
-        lib = _LOADED.get(name)
-        built = False
-        if lib is None:
-            before = BUILD_LOG.get(name)
-            lib = ctypes.CDLL(str(build(name, defines)))
-            _LOADED[name] = lib
-            built = BUILD_LOG.get(name) is not before
-        span.note(name=name, built=built)
-        return lib
+def device_index(device) -> int:
+    """The index of CUDA ``device`` (the current one for ``'cuda'``)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the kernels' counters live on a CUDA device, "
+                         f"not {device}")
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
+
+
+def launches() -> dict:
+    """The kernel launches of this process, by count name."""
+    return dict(_LAUNCHES)
+
+
+def reset_launches() -> None:
+    """Set every launch count to 0."""
+    _LAUNCHES.update(dict.fromkeys(_LAUNCHES, 0))
+
+
+class Library:
+    """``csrc/<name>.cu`` as its wrapper declares it at import: its C
+    ``entries`` (name: argtypes; each returns 0 or a code that
+    ``<name>_error_string`` describes), the build's ``defines`` and its
+    device ``counters`` (name: (dtype, words), ``words`` an int or the
+    entry that returns it)."""
+
+    def __init__(self, name, entries, counters=None, defines=None):
+        self.name, self.entries, self.defines = name, entries, defines
+        self.counters, self._lib = counters or {}, None
+        _LIBRARIES.append(self)
+
+    def lib(self) -> ctypes.CDLL:
+        """The library, built and loaded at its first use, entries typed."""
+        if self._lib is None:
+            span = trace.span("build")
+            with span, _LOCK:
+                if self._lib is None:
+                    before = BUILD_LOG.get(self.name)
+                    lib = ctypes.CDLL(str(build(self.name, self.defines)))
+                    for entry, argtypes in self.entries.items():
+                        fn = getattr(lib, entry)
+                        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+                    fn = self._errors = getattr(
+                        lib, f"{self.name}_error_string")
+                    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
+                    self._lib = lib
+                    span.note(name=self.name,
+                              built=BUILD_LOG.get(self.name) is not before)
+        return self._lib
+
+    def launcher(self, entry, *counts, message=None, stream=True):
+        """``launch(device, *args)``: ``entry`` called with ``args`` and the
+        current stream (unless not ``stream``) on ``device``, a non-zero
+        code raised as ``message`` (default "<first count> launch failed:
+        <text> (<code>)"), and 1 added to each of ``counts``."""
+        message = message or f"{(counts or (self.name,))[0]} launch " \
+            "failed: {} ({})"
+        _LAUNCHES.update({name: 0 for name in counts if name not in _LAUNCHES})
+
+        def launch(device, *args) -> None:
+            fn = getattr(self._lib or self.lib(), entry)
+            with torch.cuda.device(device):
+                code = fn(*args, torch.cuda.current_stream().cuda_stream) \
+                    if stream else fn(*args)
+            if code:
+                raise RuntimeError(
+                    message.format(self._errors(code).decode(), code))
+            for name in counts:
+                _LAUNCHES[name] += 1
+        return launch
+
+    def counter(self, name, device) -> torch.Tensor:
+        """Device counter ``name`` on ``device``, zeros made at first use."""
+        key = (self.name, name, device_index(device))
+        found = _COUNTERS.get(key)
+        if found is None:
+            dtype, words = self.counters[name]
+            if isinstance(words, str):
+                words = getattr(self.lib(), words)()
+            found = _COUNTERS[key] = torch.zeros(
+                words, dtype=dtype, device=torch.device("cuda", key[2]))
+        return found
+
+    def read(self, name, device="cuda") -> int:
+        """Counter ``name``'s words on ``device``, summed; waits for it."""
+        found = _COUNTERS.get((self.name, name, device_index(device)))
+        return 0 if found is None else int(found.sum())
+
+    def reset(self, name, device="cuda") -> None:
+        """Set counter ``name`` on ``device`` to 0, in stream order."""
+        found = _COUNTERS.get((self.name, name, device_index(device)))
+        if found is not None:
+            found.zero_()
+
+
+trace.add_counters(
+    lambda: {**{f"launches.{k}": n for k, n in launches().items()},
+             **{f"load.{x.name}": 1 for x in _LIBRARIES if x._lib},
+             **{f"build.{k}": 1 for k in list(BUILD_LOG)}},
+    lambda indices: {name: sum(x.read(name, torch.device("cuda", i))
+                               for i in indices)
+                     for x in _LIBRARIES for name in x.counters})

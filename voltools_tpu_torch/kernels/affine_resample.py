@@ -25,7 +25,6 @@ reads the count.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -60,45 +59,15 @@ ARGTYPES = [
     ctypes.c_void_p,                                       # fast-path count
     ctypes.c_void_p,                                            # stream
 ]
-# per CUDA device index: the kernel's fast-path counter, (slots, 16)
-# int64, each slot a 128-byte line whose first word counts in-range voxels
-# that took the fast path
-_COUNTS: dict = {}
-_COUNT_STRIDE = 16
-
-
-@functools.lru_cache(maxsize=1)
-def _library():
-    lib = _build.load(NAME)
-    fn = lib.affine_resample_launch
-    fn.argtypes = ARGTYPES
-    fn.restype = ctypes.c_int
-    lib.affine_resample_error_string.argtypes = [ctypes.c_int]
-    lib.affine_resample_error_string.restype = ctypes.c_char_p
-    lib.affine_resample_count_words.argtypes = []
-    lib.affine_resample_count_words.restype = ctypes.c_int
-    return lib
-
-
-def _device_index(device) -> int:
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"the kernels' counters live on a CUDA device, "
-                         f"not {device}")
-    return torch.cuda.current_device() if device.index is None \
-        else device.index
-
-
-def _fast_path_counter(device: torch.device) -> torch.Tensor:
-    index = _device_index(device)
-    counter = _COUNTS.get(index)
-    if counter is None:
-        words = _library().affine_resample_count_words()
-        counter = torch.zeros((words // _COUNT_STRIDE, _COUNT_STRIDE),
-                              dtype=torch.int64,
-                              device=torch.device("cuda", index))
-        _COUNTS[index] = counter
-    return counter
+# its fast-path counter is affine_resample_count_words() int64 words:
+# slots of a 128-byte line each, of which the kernel adds to the first
+# word alone, so their sum is the count
+LIBRARY = _build.Library(
+    NAME, {"affine_resample_launch": ARGTYPES,
+           "affine_resample_count_words": []},
+    counters={"fast_path_voxels": (torch.int64,
+                                   "affine_resample_count_words")})
+_LAUNCH = LIBRARY.launcher("affine_resample_launch", NAME)
 
 
 def fast_path_voxels(device="cuda") -> int:
@@ -108,15 +77,12 @@ def fast_path_voxels(device="cuda") -> int:
     the last :func:`reset_fast_path_voxels` in this process.  Trilinear
     runs the edge path alone and counts none.  Reading it waits for the
     device."""
-    counter = _COUNTS.get(_device_index(device))
-    return 0 if counter is None else int(counter[:, 0].sum())
+    return LIBRARY.read("fast_path_voxels", device)
 
 
 def reset_fast_path_voxels(device="cuda") -> None:
     """Set the fast-path counter of ``device`` to 0 (in stream order)."""
-    counter = _COUNTS.get(_device_index(device))
-    if counter is not None:
-        counter.zero_()
+    LIBRARY.reset("fast_path_voxels", device)
 
 
 def _check(volume, matrices, order, mode, out_shape, out):
@@ -216,9 +182,9 @@ def affine_resample(volume: torch.Tensor, matrices: torch.Tensor, order: int,
     the others contiguous.  ``patch`` is the warp patch of the launch,
     ``FLAT_PATCH`` or ``DEEP_PATCH`` (the planner's
     :func:`~.planner.walk_patch` picks it; the result is the same).
-    ``affine_resample.launches`` counts the kernel launches (the CPU path
-    launches nothing), :func:`fast_path_voxels` the in-range voxels that
-    took the kernel's interior fast path."""
+    ``_build.launches()["affine_resample"]`` counts the kernel launches
+    (the CPU path launches nothing), :func:`fast_path_voxels` the in-range
+    voxels that took the kernel's interior fast path."""
     out_shape = (tuple(volume.shape) if out_shape is None
                  else tuple(int(s) for s in out_shape))
     full = _check(volume, matrices, order, mode, out_shape, out)
@@ -236,22 +202,11 @@ def affine_resample(volume: torch.Tensor, matrices: torch.Tensor, order: int,
     if matrices.data_ptr() % 16:
         # the kernel reads each matrix row as one 16-byte load
         matrices = matrices.clone()
-    lib = _library()
-    # the launch goes to the current device; make it the volume's for the
-    # call only, so the caller's current device is left as it was
-    with torch.cuda.device(volume.device):
-        code = lib.affine_resample_launch(
+    _LAUNCH(volume.device,
             volume.data_ptr(), *volume.shape, row_pitch(volume),
             matrices.data_ptr(), n,
             out.data_ptr(), *out_shape, order, _MODES[mode],
             int(vector_rows(volume)), int(tuple(patch) == DEEP_PATCH),
-            float(cval), _fast_path_counter(volume.device).data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if code != 0:
-        message = lib.affine_resample_error_string(code).decode()
-        raise RuntimeError(f"affine_resample launch failed: {message} ({code})")
-    affine_resample.launches += 1
+            float(cval),
+            LIBRARY.counter("fast_path_voxels", volume.device).data_ptr())
     return out
-
-
-affine_resample.launches = 0

@@ -40,21 +40,20 @@ once, and the source, read once a launch: where the output's rows are
 whole 128-byte lines and a 32-float segment's source slab fits half the
 L2, as at (256, 512, 512), its CTAs are numbered x segment first, so that
 slab stays in L2 across the launch's matrices; elsewhere matrix first
-(the C entry decides, csrc/affine_slab.cu).  ``affine_slab.row_launches``
-counts its launches.
+(the C entry decides, csrc/affine_slab.cu).  ``_build.launches()``
+counts its launches under ``"affine_slab.rows"``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
 from . import _build
 from .affine_resample import (_MODES, _PLAIN_INTERPOLATION, _check,
-                              _check_launch, _device_index, _plain)
+                              _check_launch, _plain)
 from .layout import ROW_ALIGN, row_pitch, tma_ready
 from .planner import (MAX_BOX, ROW_AXIS, STAGES, SlabPlan, _leaves_alone,
                       slab_extents, slab_plan)
@@ -63,15 +62,8 @@ NAME = "affine_slab"
 SOURCE = "voltools_tpu_torch/csrc/affine_slab.cu"
 REPLACES = "voltools_tpu/kernels/pallas_affine.py:223"
 
-# per CUDA device index: the kernel's int32 overflow counter
-_OVERFLOWS: dict = {}
-
-
-@functools.lru_cache(maxsize=1)
-def _library():
-    lib = _build.load(NAME)
-    fn = lib.affine_slab_launch
-    fn.argtypes = [
+LIBRARY = _build.Library(NAME, {
+    "affine_slab_launch": [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # volume
         ctypes.c_int,                                               # pitch
         ctypes.c_void_p, ctypes.c_longlong,                         # matrices
@@ -81,10 +73,8 @@ def _library():
         ctypes.c_int, ctypes.c_int, ctypes.c_float,       # order, border, cval
         ctypes.c_void_p,                                  # overflow counter
         ctypes.c_void_p,                                  # stream
-    ]
-    fn.restype = ctypes.c_int
-    rows = lib.affine_rows_launch
-    rows.argtypes = [
+    ],
+    "affine_rows_launch": [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # volume
         ctypes.c_int,                                               # pitch
         ctypes.c_void_p, ctypes.c_longlong,                         # matrices
@@ -92,17 +82,18 @@ def _library():
         ctypes.c_int, ctypes.c_float,                     # border, cval
         ctypes.c_int,                                     # item order
         ctypes.c_void_p, ctypes.c_void_p,                 # overflows, stream
-    ]
-    rows.restype = ctypes.c_int
-    occ = lib.affine_slab_blocks_per_sm
-    occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,   # box
-                    ctypes.c_int,                               # stages
-                    ctypes.c_int, ctypes.c_int,                 # order, border
-                    ctypes.POINTER(ctypes.c_int)]
-    occ.restype = ctypes.c_int
-    lib.affine_slab_error_string.argtypes = [ctypes.c_int]
-    lib.affine_slab_error_string.restype = ctypes.c_char_p
-    return lib
+    ],
+    "affine_slab_blocks_per_sm": [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,                   # box
+        ctypes.c_int,                                               # stages
+        ctypes.c_int, ctypes.c_int,                       # order, border
+        ctypes.POINTER(ctypes.c_int)],
+}, counters={"overflows": (torch.int32, 1)})
+_LAUNCH = LIBRARY.launcher("affine_slab_launch", NAME)
+_ROWS = LIBRARY.launcher("affine_rows_launch", NAME, f"{NAME}.rows")
+_OCCUPANCY = LIBRARY.launcher(
+    "affine_slab_blocks_per_sm", stream=False,
+    message=f"{NAME} occupancy query failed: {{}}")
 
 
 def overflows(device="cuda") -> int:
@@ -110,34 +101,18 @@ def overflows(device="cuda") -> int:
     ``device``, in this process, and on the row path how many it wrote of
     matrices that do not leave the row axis alone.  Reading it waits for
     the device."""
-    counter = _OVERFLOWS.get(_device_index(device))
-    return 0 if counter is None else int(counter.item())
+    return LIBRARY.read("overflows", device)
 
 
 def blocks_per_sm(plan: SlabPlan, device="cuda") -> int:
     """How many CTAs of a launch with ``plan``'s box share one SM of the
     CUDA ``device`` at a time (the occupancy the kernel runs at; its
     persistent grid is this many CTAs per SM)."""
-    lib = _library()
     blocks = ctypes.c_int(0)
-    with torch.cuda.device(torch.device("cuda", _device_index(device))):
-        code = lib.affine_slab_blocks_per_sm(
-            *plan.extents, STAGES, plan.order, _MODES[plan.mode],
-            ctypes.byref(blocks))
-    if code != 0:
-        message = lib.affine_slab_error_string(code).decode()
-        raise RuntimeError(f"affine_slab occupancy query failed: {message}")
+    _OCCUPANCY(torch.device("cuda", _build.device_index(device)),
+               *plan.extents, STAGES, plan.order, _MODES[plan.mode],
+               ctypes.byref(blocks))
     return blocks.value
-
-
-def _counter(device: torch.device) -> torch.Tensor:
-    index = _device_index(device)
-    counter = _OVERFLOWS.get(index)
-    if counter is None:
-        counter = torch.zeros(1, dtype=torch.int32,
-                              device=torch.device("cuda", index))
-        _OVERFLOWS[index] = counter
-    return counter
 
 
 def _fit_plan(plan, volume, matrices, order, mode, out_shape,
@@ -213,9 +188,9 @@ def affine_slab(volume: torch.Tensor, matrices: torch.Tensor, order: int,
     ``_force_general`` launches that with the plan's box.  Matrices on the
     CPU that a row plan cannot take raise; on the card the row path
     resamples them from global memory and counts them.
-    ``affine_slab.launches`` counts the kernel launches (the CPU path
-    launches nothing), ``affine_slab.row_launches`` those of the row
-    path."""
+    ``_build.launches()`` counts the kernel launches under
+    ``"affine_slab"`` (the CPU path launches nothing), those of the row
+    path under ``"affine_slab.rows"`` too."""
     out_shape = (tuple(volume.shape) if out_shape is None
                  else tuple(int(s) for s in out_shape))
     full = _check(volume, matrices, order, mode, out_shape, out)
@@ -234,31 +209,14 @@ def affine_slab(volume: torch.Tensor, matrices: torch.Tensor, order: int,
         out = torch.empty(full, dtype=torch.float32, device=volume.device)
     if n == 0:
         return out
-    rows = plan.rows and not _force_general
-    lib = _library()
-    # the launch goes to the current device; make it the volume's for the
-    # call only, so the caller's current device is left as it was
-    with torch.cuda.device(volume.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if rows:
-            code = lib.affine_rows_launch(
-                volume.data_ptr(), *volume.shape, row_pitch(volume),
-                matrices.data_ptr(), n, out.data_ptr(), *out_shape,
-                _MODES[mode], float(cval), -1,
-                _counter(volume.device).data_ptr(), stream)
-        else:
-            code = lib.affine_slab_launch(
-                volume.data_ptr(), *volume.shape, row_pitch(volume),
-                matrices.data_ptr(), n, out.data_ptr(), *out_shape,
-                *plan.extents, STAGES, order, _MODES[mode], float(cval),
-                _counter(volume.device).data_ptr(), stream)
-    if code != 0:
-        message = lib.affine_slab_error_string(code).decode()
-        raise RuntimeError(f"affine_slab launch failed: {message} ({code})")
-    affine_slab.launches += 1
-    affine_slab.row_launches += rows
+    counter = LIBRARY.counter("overflows", volume.device).data_ptr()
+    if plan.rows and not _force_general:
+        _ROWS(volume.device, volume.data_ptr(), *volume.shape,
+              row_pitch(volume), matrices.data_ptr(), n, out.data_ptr(),
+              *out_shape, _MODES[mode], float(cval), -1, counter)
+    else:
+        _LAUNCH(volume.device, volume.data_ptr(), *volume.shape,
+                row_pitch(volume), matrices.data_ptr(), n, out.data_ptr(),
+                *out_shape, *plan.extents, STAGES, order, _MODES[mode],
+                float(cval), counter)
     return out
-
-
-affine_slab.launches = 0
-affine_slab.row_launches = 0

@@ -34,7 +34,6 @@ wherever the bound holds.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -42,7 +41,6 @@ import torch
 
 from ..utils import trace
 from . import _build
-from .affine_resample import _device_index
 from .layout import padded_width, row_pitch, tma_ready
 
 NAME = "backproject"
@@ -83,8 +81,10 @@ SMEM_LIMIT = 232448 - 1024
 _W, _L = LAYOUT["BP_WARPS"], LAYOUT["BP_LINES"]
 TILES = ((4, _L), (2, _L), (_W, 1), (1, _L), (4, 1), (2, 1), (1, 1))
 
-# per CUDA device index: the kernel's int32 window-miss counter
-_MISSES: dict = {}
+LIBRARY = _build.Library(NAME, {"backproject_launch": ARGTYPES},
+                         counters={"window_misses": (torch.int32, 1)},
+                         defines=LAYOUT)
+_LAUNCH = LIBRARY.launcher("backproject_launch", NAME)
 
 
 class RowTile(NamedTuple):
@@ -93,17 +93,6 @@ class RowTile(NamedTuple):
     warps: int
     lines: int
     cap: int
-
-
-@functools.lru_cache(maxsize=1)
-def _library():
-    lib = _build.load(NAME, LAYOUT)
-    fn = lib.backproject_launch
-    fn.argtypes = ARGTYPES
-    fn.restype = ctypes.c_int
-    lib.backproject_error_string.argtypes = [ctypes.c_int]
-    lib.backproject_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def smem_bytes(warps: int, lines: int, cap: int, layout=LAYOUT) -> int:
@@ -178,18 +167,7 @@ def _tma_rows(projs: torch.Tensor) -> torch.Tensor:
 def window_misses(device="cuda") -> int:
     """How many taps the row-gather kernel read outside its staged window
     on ``device``, in this process.  Reading it waits for the device."""
-    counter = _MISSES.get(_device_index(device))
-    return 0 if counter is None else int(counter.item())
-
-
-def _miss_counter(device: torch.device) -> torch.Tensor:
-    index = _device_index(device)
-    counter = _MISSES.get(index)
-    if counter is None:
-        counter = torch.zeros(1, dtype=torch.int32,
-                              device=torch.device("cuda", index))
-        _MISSES[index] = counter
-    return counter
+    return LIBRARY.read("window_misses", device)
 
 
 def row_gather(minv, keep, out_shape, proj_shape,
@@ -331,9 +309,9 @@ def backproject(projs: torch.Tensor, minv, keep, out_shape,
     a new contiguous float32 ``out_shape`` tensor on the projections'
     device.  ``keep`` is the two axes of ``M^-1 w`` that index a projection
     (rows, cols), in increasing order.  ``rowgather`` picks the path (None:
-    :func:`row_gather` of ``minv``).  ``backproject.launches`` counts the
-    kernel launches (the CPU path launches nothing); each call launches
-    once."""
+    :func:`row_gather` of ``minv``).  ``_build.launches()["backproject"]``
+    counts the kernel launches (the CPU path launches nothing); each call
+    launches once."""
     out_shape = tuple(int(s) for s in out_shape)
     keep = tuple(int(k) for k in keep)
     minv = _check(projs, minv, keep, out_shape)
@@ -365,21 +343,9 @@ def backproject(projs: torch.Tensor, minv, keep, out_shape,
     if rowgather:
         projs = _tma_rows(projs)
     out = torch.empty(out_shape, dtype=torch.float32, device=projs.device)
-    lib = _library()
-    # the launch goes to the current device; make it the projections' for
-    # the call only, so the caller's current device is left as it was
-    with torch.cuda.device(projs.device):
-        code = lib.backproject_launch(
+    _LAUNCH(projs.device,
             projs.data_ptr(), *projs.shape, row_pitch(projs),
             coef.data_ptr(), int(bool(rowgather)), keep[1], out.data_ptr(),
             *out_shape, *tile, smem_bytes(*tile),
-            _miss_counter(projs.device).data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if code != 0:
-        message = lib.backproject_error_string(code).decode()
-        raise RuntimeError(f"backproject launch failed: {message} ({code})")
-    backproject.launches += 1
+            LIBRARY.counter("window_misses", projs.device).data_ptr())
     return out
-
-
-backproject.launches = 0

@@ -23,13 +23,10 @@ replaced (``s > scores``): :func:`improved_voxels` reads the count.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from ..utils import trace
 from . import _build
-from .affine_resample import _device_index
 
 NAME = "match_update"
 SOURCE = "voltools_tpu_torch/csrc/match_update.cu"
@@ -43,19 +40,9 @@ ARGTYPES = [
     ctypes.c_void_p,                           # stream
 ]
 
-# per CUDA device index: the kernel's int64 improved-voxel counter
-_IMPROVED: dict = {}
-
-
-@functools.lru_cache(maxsize=1)
-def _library():
-    lib = _build.load(NAME)
-    fn = lib.match_update_launch
-    fn.argtypes = ARGTYPES
-    fn.restype = ctypes.c_int
-    lib.match_update_error_string.argtypes = [ctypes.c_int]
-    lib.match_update_error_string.restype = ctypes.c_char_p
-    return lib
+LIBRARY = _build.Library(NAME, {"match_update_launch": ARGTYPES},
+                         counters={"improved_voxels": (torch.int64, 1)})
+_LAUNCH = LIBRARY.launcher("match_update_launch", NAME)
 
 
 def plain_match_update(cc: torch.Tensor, inv: torch.Tensor,
@@ -74,18 +61,7 @@ def plain_match_update(cc: torch.Tensor, inv: torch.Tensor,
 def improved_voxels(device="cuda") -> int:
     """How many voxels the kernel's launches on ``device`` gave a new best
     (``s > scores``) in this process.  Reading it waits for the device."""
-    counter = _IMPROVED.get(_device_index(device))
-    return 0 if counter is None else int(counter.item())
-
-
-def _improved_counter(device: torch.device) -> torch.Tensor:
-    index = _device_index(device)
-    counter = _IMPROVED.get(index)
-    if counter is None:
-        counter = torch.zeros(1, dtype=torch.int64,
-                              device=torch.device("cuda", index))
-        _IMPROVED[index] = counter
-    return counter
+    return LIBRARY.read("improved_voxels", device)
 
 
 def _check(cc, inv, scores, indices, index) -> None:
@@ -116,8 +92,9 @@ def match_update(cc: torch.Tensor, inv: torch.Tensor, scores: torch.Tensor,
     """Update the best ``scores`` (float32) and their ``indices`` (int32)
     in place with orientation ``index``, whose correlation is ``cc``,
     scaled by ``inv`` (both float32); all four contiguous, of one shape,
-    on one device.  ``match_update.launches`` counts the kernel launches
-    (the CPU path launches nothing); each CUDA call launches once."""
+    on one device.  ``_build.launches()["match_update"]`` counts the
+    kernel launches (the CPU path launches nothing); each CUDA call
+    launches once."""
     index = int(index)
     _check(cc, inv, scores, indices, index)
     if cc.device.type == "cpu":
@@ -125,20 +102,7 @@ def match_update(cc: torch.Tensor, inv: torch.Tensor, scores: torch.Tensor,
         return
     if cc.device.type != "cuda":
         raise ValueError(f"unsupported device {cc.device}")
-    lib = _library()
-    # the launch goes to the current device; make it the maps' for the
-    # call only, so the caller's current device is left as it was
-    with torch.cuda.device(cc.device):
-        code = lib.match_update_launch(
+    _LAUNCH(cc.device,
             cc.data_ptr(), inv.data_ptr(), scores.data_ptr(),
             indices.data_ptr(), cc.numel(), index,
-            _improved_counter(cc.device).data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if code != 0:
-        message = lib.match_update_error_string(code).decode()
-        raise RuntimeError(f"match_update launch failed: {message} ({code})")
-    match_update.launches += 1
-    trace.count("launches.match_update")
-
-
-match_update.launches = 0
+            LIBRARY.counter("improved_voxels", cc.device).data_ptr())

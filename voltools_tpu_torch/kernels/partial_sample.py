@@ -33,15 +33,14 @@ For CUDA tensors each launches ``csrc/partial_sample.cu`` (built by
 ``nvcc`` at first use, see :mod:`._build`) on the current stream without
 synchronising; for CPU tensors it runs the plain version.  A CUDA tensor
 never falls back to the plain version: the launch succeeds or the call
-raises.  ``partial_sample.launches``, ``partial_sample_ring.launches``
-and ``partial_project.launches`` count the launches,
-``partial_project.line_launches`` those of D2 on the line path.
+raises.  ``_build.launches()`` counts the launches under
+``"partial_sample"``, ``"partial_sample_ring"`` and ``"partial_project"``,
+those of D2 on the line path under ``"partial_project.line"`` too.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -98,24 +97,14 @@ RING_CAPACITY = 32
 _FORWARD_CHUNK_VOXELS = 1 << 22
 
 
-@functools.lru_cache(maxsize=1)
-def _library():
-    lib = _build.load(NAME)
-    lib.partial_sample_launch.argtypes = SAMPLE_ARGTYPES
-    lib.partial_sample_launch.restype = ctypes.c_int
-    lib.partial_sample_ring_launch.argtypes = RING_ARGTYPES
-    lib.partial_sample_ring_launch.restype = ctypes.c_int
-    lib.partial_project_launch.argtypes = PROJECT_ARGTYPES
-    lib.partial_project_launch.restype = ctypes.c_int
-    lib.partial_sample_error_string.argtypes = [ctypes.c_int]
-    lib.partial_sample_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _raise_on(code: int, what: str):
-    if code != 0:
-        message = _library().partial_sample_error_string(code).decode()
-        raise RuntimeError(f"{what} launch failed: {message} ({code})")
+LIBRARY = _build.Library(NAME, {"partial_sample_launch": SAMPLE_ARGTYPES,
+                                "partial_sample_ring_launch": RING_ARGTYPES,
+                                "partial_project_launch": PROJECT_ARGTYPES})
+_SAMPLE = LIBRARY.launcher("partial_sample_launch", "partial_sample")
+_RING = LIBRARY.launcher("partial_sample_ring_launch", "partial_sample_ring")
+_PROJECT = LIBRARY.launcher("partial_project_launch", "partial_project")
+_PROJECT_LINE = LIBRARY.launcher("partial_project_launch", "partial_project",
+                                 "partial_project.line")
 
 
 # ------------------------------------------------------------------ D1
@@ -273,7 +262,7 @@ def partial_sample(slab: torch.Tensor, matrix, z0: int, true_shape,
     'border'.  Only voxels whose source point lies inside the volume by
     ``mode``'s test take a sample; with ``last`` (the ring's last step) the
     others are set to ``cval``.  Returns ``acc``.  Each CUDA call is one
-    launch, counted by ``partial_sample.launches``."""
+    launch, counted as ``"partial_sample"``."""
     true_shape, matrix = _check_step((slab,), acc, matrix, true_shape, order,
                                      mode)
     if slab.device.type == "cpu":
@@ -284,21 +273,11 @@ def partial_sample(slab: torch.Tensor, matrix, z0: int, true_shape,
     if slab.device.type != "cuda":
         raise ValueError(f"unsupported device {slab.device}")
     rows = np.ascontiguousarray(matrix[:3])
-    lib = _library()
-    # the launch goes to the current device; make it the slab's for the
-    # call only, so the caller's current device is left as it was
-    with torch.cuda.device(slab.device):
-        code = lib.partial_sample_launch(
+    _SAMPLE(slab.device,
             slab.data_ptr(), slab.shape[0], int(z0), *true_shape,
             rows.ctypes.data, acc.data_ptr(), *acc.shape, order,
-            _MODES[mode], int(bool(last)), float(cval),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(code, "partial_sample")
-    partial_sample.launches += 1
+            _MODES[mode], int(bool(last)), float(cval))
     return acc
-
-
-partial_sample.launches = 0
 
 
 def plain_partial_ring(slabs, z0s, matrix, true_shape, order: int, mode: str,
@@ -328,8 +307,8 @@ def partial_sample_ring(slabs, z0s, matrix, true_shape, order: int,
     ``cval`` as for :func:`partial_sample`.  Equal, bit for bit, to the
     chain of :func:`partial_sample` steps over the same slabs in the same
     order from a zero accumulator, the last with ``last=True``
-    (:func:`plain_partial_ring`).  On the card one launch, counted by
-    ``partial_sample_ring.launches``; it takes at most ``RING_CAPACITY``
+    (:func:`plain_partial_ring`).  On the card one launch, counted as
+    ``"partial_sample_ring"``; it takes at most ``RING_CAPACITY``
     slabs."""
     slabs = tuple(slabs)
     z0s = [int(z) for z in z0s]
@@ -356,19 +335,11 @@ def partial_sample_ring(slabs, z0s, matrix, true_shape, order: int,
     rows = np.ascontiguousarray(matrix[:3])
     pointers = (ctypes.c_void_p * len(slabs))(*(t.data_ptr() for t in slabs))
     firsts = (ctypes.c_int * len(slabs))(*z0s)
-    lib = _library()
-    with torch.cuda.device(device):
-        code = lib.partial_sample_ring_launch(
-            pointers, firsts, len(slabs), slabs[0].shape[0], *true_shape,
-            rows.ctypes.data, out.data_ptr(), *out_shape, order,
-            _MODES[mode], float(cval),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(code, "partial_sample_ring")
-    partial_sample_ring.launches += 1
+    _RING(device,
+          pointers, firsts, len(slabs), slabs[0].shape[0], *true_shape,
+          rows.ctypes.data, out.data_ptr(), *out_shape, order,
+          _MODES[mode], float(cval))
     return out
-
-
-partial_sample_ring.launches = 0
 
 
 # ------------------------------------------------------------------ D2
@@ -492,11 +463,11 @@ def partial_project(x_slab: torch.Tensor, matrices, off: float, out_shape,
     global z ``off``) through ``matrices`` ((N, 4, 4) float32 numpy
     pull-back matrices) into projections of the global ``out_shape`` along
     ``projection_axis`` (0-2); A and B are the extents of the other two
-    axes, in order.  On the card one launch for all tilts, counted by
-    ``partial_project.launches``; it sums each ray's planes in order, the
+    axes, in order.  On the card one launch for all tilts, counted as
+    ``"partial_project"``; it sums each ray's planes in order, the
     plain version in chunks, within :func:`sum_order_atol`.  Where
     :func:`line_axis` gives the second ray axis the launch takes the line
-    path (also counted by ``partial_project.line_launches``), equal to the
+    path (also counted as ``"partial_project.line"``), equal to the
     general kernel bit for bit on a finite slab; ``_force_general`` keeps
     it on the general kernel, the line path's reference."""
     out_shape = tuple(int(s) for s in out_shape)
@@ -531,21 +502,13 @@ def partial_project(x_slab: torch.Tensor, matrices, off: float, out_shape,
         return out
     line = keep[1] if not _force_general and _leaves_alone(
         matrices, keep[1]) else 0
-    lib = _library()
     with torch.cuda.device(x_slab.device):
         # the rows go up through pinned memory without blocking, in stream
         # order, so the call does not wait for the device
         rows = torch.from_numpy(np.ascontiguousarray(matrices[:, :3])) \
             .pin_memory().to(x_slab.device, non_blocking=True)
-        code = lib.partial_project_launch(
-            x_slab.data_ptr(), *x_slab.shape, rows.data_ptr(), len(matrices),
-            float(off), *out_shape, projection_axis, line, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(code, "partial_project")
-    partial_project.launches += 1
-    partial_project.line_launches += bool(line)
+    (_PROJECT_LINE if line else _PROJECT)(
+        x_slab.device,
+        x_slab.data_ptr(), *x_slab.shape, rows.data_ptr(), len(matrices),
+        float(off), *out_shape, projection_axis, line, out.data_ptr())
     return out
-
-
-partial_project.launches = 0
-partial_project.line_launches = 0

@@ -74,6 +74,7 @@ _IDS = itertools.count(1)
 _LOCAL = threading.local()   # .stack: open spans; .counts: counters
 _THREAD_COUNTS: list = []    # every thread's counter dict
 _COUNTS_LOCK = threading.Lock()
+_READERS: list = []          # (host reader, device reader) of add_counters
 # the current stream's id, read without making a stream object
 _RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
@@ -272,30 +273,27 @@ def count(name: str, n: int = 1) -> None:
     mine[name] = mine.get(name, 0) + n
 
 
+def add_counters(host, device) -> None:
+    """Register counters kept outside the tracer, which :func:`counts` and
+    the export add to its own: ``host()`` returns a dict of them, and
+    ``device(indices)`` a dict of those on the CUDA devices ``indices``,
+    each summed over them (reading it may wait for the devices)."""
+    _READERS.append((host, device))
+
+
 def counts() -> dict:
     """Every counter of this process: :func:`count`'s, summed over
-    threads; and, read from the state that holds them, the kernels' launch
-    counters (``launches.<kernel>``, their ``launches`` attributes) and
-    the kernel libraries loaded (``load.<name>``) and built by nvcc
-    (``build.<name>``) in this process."""
-    from ..kernels import _build, affine_resample, affine_slab, backproject
-    from ..kernels import partial_sample as ps
+    threads, and the host readers' of :func:`add_counters` (the kernels'
+    launches, ``launches.<name>``, and the libraries loaded,
+    ``load.<name>``, and built by nvcc, ``build.<name>``)."""
     total: dict = {}
     with _COUNTS_LOCK:
         mine = list(_THREAD_COUNTS)
     for counter in mine:
         for name, n in list(counter.items()):
             total[name] = total.get(name, 0) + n
-    for fn in (affine_resample.affine_resample, affine_slab.affine_slab,
-               backproject.backproject, ps.partial_sample,
-               ps.partial_sample_ring, ps.partial_project):
-        total[f"launches.{fn.__name__}"] = fn.launches
-    total["launches.partial_project.line"] = ps.partial_project.line_launches
-    total["launches.affine_slab.rows"] = affine_slab.affine_slab.row_launches
-    for name in list(_build._LOADED):
-        total[f"load.{name}"] = 1
-    for name in list(_build.BUILD_LOG):
-        total[f"build.{name}"] = 1
+    for host, _ in _READERS:
+        total.update(host())
     return total
 
 
@@ -345,20 +343,11 @@ def stop() -> None:
 
 
 def _device_counters() -> dict:
-    """The kernels' counters on the device, summed over the devices the
-    tracer anchored (each read waits for its device)."""
-    from ..kernels.affine_resample import fast_path_voxels
-    from ..kernels.affine_slab import overflows
-    from ..kernels.backproject import window_misses
-    from ..kernels.match_update import improved_voxels
-    found = {"fast_path_voxels": 0, "overflows": 0, "window_misses": 0,
-             "improved_voxels": 0}
-    for index in _ANCHORS:
-        device = torch.device("cuda", index)
-        found["fast_path_voxels"] += fast_path_voxels(device)
-        found["overflows"] += overflows(device)
-        found["window_misses"] += window_misses(device)
-        found["improved_voxels"] += improved_voxels(device)
+    """The device readers' counters of :func:`add_counters`, summed over
+    the devices the tracer anchored (each read waits for its device)."""
+    found: dict = {}
+    for _, device in _READERS:
+        found.update(device(list(_ANCHORS)))
     return found
 
 
