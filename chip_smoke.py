@@ -1083,7 +1083,8 @@ def matcher_phase(torch, np, dev, zero_launches, launch_counts):
     launch counters set to 0 just before it: the update kernel launches
     once an orientation.  Then the same orientations a call each, every
     update held bit for bit to the plain version's on the matcher's own
-    correlation and ``1/sigma``.  Returns the call's launches and the
+    correlation (computed again from the template it placed last) and
+    ``1/sigma``.  Returns the call's launches and the
     largest differences (``score_diff``)."""
     from voltools_tpu_torch.kernels import match_update as MU
     from voltools_tpu_torch.models.matching import TemplateMatcher
@@ -1115,7 +1116,8 @@ def matcher_phase(torch, np, dev, zero_launches, launch_counts):
     for k, m in enumerate(ms):
         plain = (matcher.scores.clone(), matcher.indices.clone())
         matcher.match(m)
-        MU.plain_match_update(matcher._cc, matcher._inv, *plain, k)
+        MU.plain_match_update(matcher._correlation(), matcher._inv, *plain,
+                              k)
         diff = score_diff(torch, (matcher.scores, matcher.indices), plain)
         worst = [max(w, d) for w, d in zip(worst, diff)]
         assert diff == (0.0, 0, 0), ("TemplateMatcher", k, diff)

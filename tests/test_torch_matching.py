@@ -21,6 +21,7 @@ from portbench.reference import matching as reference
 from portbench.reference import resample
 from voltools_tpu_torch import TemplateMatcher
 from voltools_tpu_torch.models import missing_wedge
+from voltools_tpu_torch.utils import trace
 
 SHAPE = (24, 40, 36)
 BOX = 12
@@ -196,6 +197,65 @@ def test_a_mask_that_is_not_spherical_is_refused(mask):
         TemplateMatcher(tomogram, template, mask, device="cpu")
 
 
+# (tomogram, box): the file's shapes; odd axes with odd and with even
+# boxes; a box that is the tomogram on one axis (z, then x); boxes over
+# half an axis, up to one line short of it, where the two wrapped slices
+# of a window meet
+FORWARD_CASES = [((24, 40, 36), (12, 12, 12)), ((23, 39, 35), (11, 13, 9)),
+                 ((23, 39, 35), (12, 10, 14)), ((16, 20, 18), (16, 9, 10)),
+                 ((24, 40, 36), (10, 12, 36)), ((24, 40, 36), (15, 25, 21)),
+                 ((20, 21, 22), (19, 21, 13))]
+
+
+def _placed_volume(template, shape):
+    """The template point-reflected about its centre ``b // 2``, wrapped,
+    in a zero volume of ``shape``."""
+    idx = [(b // 2 - np.arange(b)) % n
+           for b, n in zip(template.shape, shape)]
+    volume = np.zeros(shape, np.float32)
+    volume[np.ix_(*idx)] = template
+    return volume
+
+
+@pytest.mark.parametrize("shape,box", FORWARD_CASES)
+def test_the_forward_on_the_templates_lines_is_rfftn_of_the_placed_volume(
+        shape, box):
+    rng = np.random.default_rng(7)
+    tomogram = rng.standard_normal(shape).astype(np.float32)
+    template = rng.standard_normal(box).astype(np.float32)
+    tm = TemplateMatcher(tomogram, template, np.ones(box, np.float32),
+                         device="cpu")
+    tm._rows.view(-1).index_copy_(0, tm._place,
+                                  torch.from_numpy(template).view(-1))
+    got = tm._forward()
+    want = torch.fft.rfftn(torch.from_numpy(_placed_volume(template, shape)))
+    assert got.shape == want.shape and got.dtype == torch.complex64
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    # what the forward does not write stays zero: a second template
+    # leaves no trace of the first
+    tm._rows.view(-1).index_copy_(0, tm._place, torch.zeros(
+        template.size))
+    assert float(tm._forward().abs().max()) == 0.0
+
+
+def test_the_correlation_comes_back_contiguous_and_counts_its_lines():
+    tomogram, template, mask, ms = _data(orientations=3)
+    tm = TemplateMatcher(tomogram, template, mask, device="cpu")
+    assert tm._correlation().is_contiguous()
+    before = trace.counts()
+    trace.start()
+    try:
+        tm.match(ms)
+    finally:
+        trace.stop()
+    after = trace.counts()
+    moved = {k: after.get(k, 0) - before.get(k, 0)
+             for k in ("match.orientations", "match.transforms",
+                       "match.pruned_rows")}
+    assert moved == {"match.orientations": 3, "match.transforms": 6,
+                     "match.pruned_rows": 3 * BOX * BOX}
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -220,3 +280,33 @@ def test_on_the_card_match_queues_without_a_sync_and_agrees(card):
     assert np.abs(scores - best).max() <= 1e-4 * np.abs(best).max()
     clear = (best - second.numpy()) > 1e-3
     np.testing.assert_array_equal(indices[clear], index.numpy()[clear])
+
+
+@pytest.mark.cuda
+def test_on_the_card_the_forward_at_tm512s_shapes_is_rfftn_and_counted(card):
+    shape, box = (256, 512, 512), (48, 48, 48)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    tomogram = torch.randn(shape, device="cuda", generator=gen)
+    template = torch.randn(box, device="cuda", generator=gen)
+    tm = TemplateMatcher(tomogram, template, torch.ones(box, device="cuda"))
+    del tomogram
+    tm._rows.view(-1).index_copy_(0, tm._place, template.view(-1))
+    got = tm._forward()
+    placed = torch.from_numpy(_placed_volume(template.cpu().numpy(), shape))
+    want = torch.fft.rfftn(placed.cuda())
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    del got, want, placed
+    assert tm._correlation().is_contiguous()
+    ms = traffic.rotation_pool(np.random.default_rng(23), 4, box)
+    before = trace.counts()
+    trace.start()
+    try:
+        tm.match(ms)
+    finally:
+        trace.stop()
+    after = trace.counts()
+    moved = {k: after.get(k, 0) - before.get(k, 0)
+             for k in ("match.orientations", "match.transforms",
+                       "match.pruned_rows")}
+    assert moved == {"match.orientations": 4, "match.transforms": 8,
+                     "match.pruned_rows": 4 * 2304}

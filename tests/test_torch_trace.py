@@ -218,9 +218,11 @@ def test_matching_spans_nest_in_match_and_count_each_orientation(
             assert ancestor["name"] == "match.template"
     assert names.count("api.affine") == orientations
     moved = {k: after.get(k, 0) - before.get(k, 0)
-             for k in ("match.orientations", "match.transforms")}
+             for k in ("match.orientations", "match.transforms",
+                       "match.pruned_rows")}
     assert moved == {"match.orientations": orientations,
-                     "match.transforms": 2 * orientations}
+                     "match.transforms": 2 * orientations,
+                     "match.pruned_rows": 8 * 8 * orientations}
     for a, b in zip(off, tm.result()):
         assert np.array_equal(a, b)
 

@@ -16,15 +16,28 @@ each orientation, a 4x4 pull-back matrix about the template's centre
    (``filt_bspline`` by default) into a preallocated box; its missing
    wedge is applied, ``irfftn(rfftn(box) * W)``; it is normalised to mean
    0 and standard deviation 1 under the mask ``M`` (weights ``M``,
-   ``n = sum(M)``) and multiplied by ``M``; and it is placed in a
-   tomogram-sized zero volume with its centre at the origin;
-2. ``match.correlate``: ``rfftn`` of that volume, the product with the
-   tomogram's spectrum, ``irfftn``;
+   ``n = sum(M)``) and multiplied by ``M``; and it is placed with its
+   centre at the origin in a zero buffer of its rows at the tomogram's
+   width;
+2. ``match.correlate``: the ``rfftn`` of the template placed in a
+   tomogram-sized zero volume, taken axis by axis on the lines that hold
+   it (below), the product with the tomogram's spectrum, ``irfftn``;
 3. ``match.update``: the correlation divided by ``n * sigma_local`` is the
    score; where it is greater than the best so far, the best and the
    orientation's index are replaced, in one pass of the update kernel
    (:mod:`..kernels.match_update`) on the card, which writes only the
    voxels the orientation changes.
+
+The forward transform skips the placed template's zeros: ``rfft`` along x
+on the template's ``bz * by`` rows; that copied into the z window of a
+zero buffer of the tomogram's depth, ``fft`` along z on its ``by * (X //
+2 + 1)`` columns; that copied into the y window of a tomogram-sized zero
+grid, and one ``fft`` along y over the whole grid.
+The windows' zeros are written once, at construction.  Three
+unnormalised forward transforms in turn, they are the ``rfftn`` of the
+placed volume.  The whole-grid pass comes last so that y is innermost in
+its output: ``irfftn`` then returns the correlation contiguous, as the
+update kernel reads it.
 
 So the score at voxel ``x`` is ``sum_y T(y) V(x + y - c) / (n
 sigma(x))``, ``T`` the normalised template, with ``sigma(x)`` the
@@ -162,6 +175,15 @@ def _placed(volume: torch.Tensor, shape, centre, reflect: bool):
             * shape[2] + idx[2].view(1, 1, -1)).reshape(-1)
 
 
+def _window(b: int, c: int, n: int, device) -> torch.Tensor:
+    """Where the lines of a box of ``b`` go on an axis of ``n``: the box
+    placed by :func:`_placed` (point-reflected about ``c``) in a periodic
+    box of ``b`` holds at line ``r`` what the same placing in ``n`` holds
+    at ``r`` for ``r <= c`` and at ``r + n - b`` after it."""
+    r = torch.arange(b, device=device)
+    return torch.where(r <= c, r, r + n - b)
+
+
 def _tomogram_terms(tomogram: torch.Tensor, mask: torch.Tensor, centre,
                     n_mask: float):
     """The normalised tomogram's spectrum (complex64) and ``1 / (N n
@@ -233,19 +255,34 @@ class TemplateMatcher:
         if not self._n_mask > 0:
             raise ValueError("the mask's weights sum to no more than 0")
         self._dev = dev
-        self._spectrum, self._inv = _tomogram_terms(
+        spectrum, self._inv = _tomogram_terms(
             tomo, mask_t, self.centre, self._n_mask)
         del tomo
         self.wedge = missing_wedge(self.box, tilt_range, tilt_axis,
                                    projection_axis, dev)
         self.sv = StaticVolume(tmpl, interpolation, device=device)
         self._mask = mask_t
-        self._place = _placed(tmpl, self.shape, self.centre, reflect=True)
         self._box = torch.empty(self.box, dtype=torch.float32, device=dev)
-        self._padded = torch.zeros(self.shape, dtype=torch.float32,
-                                   device=dev)
-        self._ft = torch.empty_like(self._spectrum)
-        self._cc = torch.empty(self.shape, dtype=torch.float32, device=dev)
+        # the forward's buffers, zero but on the template's lines
+        (bz, by, _), (depth, height, width) = self.box, self.shape
+        half = width // 2 + 1
+        self._rows = torch.zeros((bz, by, width), dtype=torch.float32,
+                                 device=dev)
+        self._place = _placed(tmpl, self._rows.shape, self.centre,
+                              reflect=True)
+        self._z_window = _window(bz, self.centre[0], depth, dev)
+        self._y_window = _window(by, self.centre[1], height, dev)
+        self._columns = torch.zeros((depth, by, half), dtype=torch.complex64,
+                                    device=dev)
+        # y outermost in memory: the pass along y takes the other two axes
+        # as one batch, with no copy
+        self._grid = torch.zeros((height, depth, half),
+                                 dtype=torch.complex64,
+                                 device=dev).permute(1, 0, 2)
+        # the spectrum in the layout the forward returns, so that the
+        # product reads the two alike
+        self._spectrum = torch.empty_like(self._forward()).copy_(spectrum)
+        del spectrum
         self.scores = torch.empty(self.shape, dtype=torch.float32,
                                   device=dev)
         self.indices = torch.empty(self.shape, dtype=torch.int32,
@@ -275,17 +312,30 @@ class TemplateMatcher:
     def _score(self, m: np.ndarray, index: int) -> None:
         with trace.span("match.template", device=self._dev):
             t = self._template(m)
-            self._padded.view(-1).index_copy_(0, self._place, t.view(-1))
+            self._rows.view(-1).index_copy_(0, self._place, t.view(-1))
         with trace.span("match.correlate", device=self._dev):
-            torch.fft.rfftn(self._padded, out=self._ft)
-            self._ft.mul_(self._spectrum)
-            torch.fft.irfftn(self._ft, s=self.shape, norm="forward",
-                             out=self._cc)
+            cc = self._correlation()
             trace.count("match.transforms", 2)
+            trace.count("match.pruned_rows", self.box[0] * self.box[1])
         with trace.span("match.update", device=self._dev):
-            match_update(self._cc, self._inv, self.scores, self.indices,
-                         index)
+            match_update(cc, self._inv, self.scores, self.indices, index)
         trace.count("match.orientations")
+
+    def _forward(self) -> torch.Tensor:
+        """The ``rfftn`` of the template in the rows' buffer placed in a
+        tomogram-sized zero volume, axis by axis on the lines that hold
+        it."""
+        self._columns.index_copy_(0, self._z_window,
+                                  torch.fft.rfft(self._rows, dim=2))
+        self._grid.index_copy_(1, self._y_window,
+                               torch.fft.fft(self._columns, dim=0))
+        return torch.fft.fft(self._grid, dim=1)
+
+    def _correlation(self) -> torch.Tensor:
+        """The placed template's correlation with the tomogram,
+        unnormalised, as a new float32 tensor."""
+        return torch.fft.irfftn(self._forward().mul_(self._spectrum),
+                                s=self.shape, norm="forward")
 
     def _template(self, m: np.ndarray) -> torch.Tensor:
         """The template rotated by ``m``, through the wedge, normalised
