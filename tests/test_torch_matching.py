@@ -18,6 +18,7 @@ import torch
 
 from portbench import traffic
 from portbench.reference import matching as reference
+from portbench.reference import matching_nsmask as reference_nsmask
 from portbench.reference import resample
 from voltools_tpu_torch import TemplateMatcher
 from voltools_tpu_torch.models import missing_wedge
@@ -190,11 +191,28 @@ def test_reset_and_chunked_calls_are_bit_for_bit_one_call():
 
 @pytest.mark.parametrize("mask", [
     _mask(stretch=(1.0, 1.3, 1.0)), _mask(centre=C - 1),
-    (np.random.default_rng(3).random((BOX,) * 3) > 0.5).astype(np.float32)])
+    (np.random.default_rng(3).random((BOX,) * 3) > 0.5).astype(np.float32),
+    np.zeros((BOX,) * 3, np.float32)])
 def test_a_mask_that_is_not_spherical_is_refused(mask):
-    tomogram, template, _, _ = _data()
-    with pytest.raises(ValueError, match="spherical"):
-        TemplateMatcher(tomogram, template, mask, device="cpu")
+    """Only a mask whose weights sum to no more than 0 is refused: a mask
+    that is not spherical (stretched, off the centre, random) is scored
+    on its own path and agrees with the non-spherical reference."""
+    tomogram, template, _, ms = _data()
+    if not mask.sum() > 0:
+        with pytest.raises(ValueError, match="sum to no more than 0"):
+            TemplateMatcher(tomogram, template, mask, device="cpu")
+        return
+    tm = TemplateMatcher(tomogram, template, mask, device="cpu")
+    assert not tm.spherical
+    tm.match(ms)
+    scores, indices = tm.result()
+    best, index, second = (t.numpy() for t in reference_nsmask.match(
+        torch.from_numpy(tomogram), torch.from_numpy(template),
+        torch.from_numpy(mask), ms))
+    assert np.abs(scores - best).max() <= 1e-4 * np.abs(best).max()
+    clear = (best - second) > 1e-3
+    assert clear.mean() > 0.9
+    np.testing.assert_array_equal(indices[clear], index[clear])
 
 
 # (tomogram, box): the file's shapes; odd axes with odd and with even

@@ -8,7 +8,7 @@ The port's counterpart of pytom-match-pick's GPU matcher
 matching.
 
 :class:`TemplateMatcher` keeps the tomogram's spectrum, its local
-statistics under the mask and the two result maps on the device.  For
+statistics under a spherical mask and the two result maps on the device.  For
 each orientation, a 4x4 pull-back matrix about the template's centre
 ``c = n // 2`` on each axis (as :meth:`StaticVolume.affine` takes it):
 
@@ -27,6 +27,31 @@ each orientation, a 4x4 pull-back matrix about the template's centre
    orientation's index are replaced, in one pass of the update kernel
    (:mod:`..kernels.match_update`) on the card, which writes only the
    voxels the orientation changes.
+
+A mask that is a function of the distance from the template's centre
+(within ``SPHERICAL_TOLERANCE``) is the same under every rotation, so
+``sigma_local`` is computed once, at construction.  Any other mask takes
+the path of pytom-match-pick's ``--non-spherical-mask``: the mask is
+rotated with the template (a second ``StaticVolume``, the template's
+interpolation) and the template is normalised under the rotated mask
+``M_r`` (``n_r = sum(M_r)``, kept on the device), and between the
+correlation and the update a fourth span computes ``sigma_local`` under
+``M_r`` anew:
+
+* ``match.sigma``: ``M_r`` placed as the template is, its forward
+  transform, the products with the spectra of the normalised tomogram
+  ``V`` and of its square (both kept from construction), two
+  ``irfftn``: ``N n_r`` times the local mean and mean square under
+  ``M_r``; from them the orientation's ``1 / (N n_r sigma)`` map, 0 where
+  ``sigma`` is at most ``SIGMA_FLOOR`` of that orientation's largest.
+  All of it up to ``mean_sq - mean^2`` is float64 (the spectra kept as
+  complex128, the forward in float64 buffers of its own): the difference
+  cancels where the tomogram's local ``sigma`` is small against its local
+  mean, and float32 transforms' rounding, which scales with the whole
+  volume's values, reads there as 0.5% of ``1 / sigma``.
+
+That is five tomogram-sized transforms an orientation where a spherical
+mask takes two.
 
 The forward transform skips the placed template's zeros: ``rfft`` along x
 on the template's ``bz * by`` rows; that copied into the z window of a
@@ -62,9 +87,13 @@ exact arithmetic:
   (pytom divides by it as it is).
 * The wedge is binary, from the tilt range alone: no tilt-angle
   weighting, CTF, dose or whitening filter, and none on the tomogram.
-* Only masks that are functions of the distance from the centre are
-  taken (pytom recomputes ``sigma`` for each orientation under a rotated
-  mask otherwise); :class:`TemplateMatcher` raises on any other.
+* A mask that is not spherical is rotated with the template's
+  interpolation (``'constant'`` 0), so a ``filt_bspline`` rotation of a
+  sharp mask rings, weights below 0 included, as they enter ``n_r`` and
+  the moments; ``sigma``'s floor is taken of each orientation's own
+  largest ``sigma``; and the moments and ``mean_sq - mean^2`` are
+  computed in float64 each orientation, then ``1 / (N n_r sigma)`` in
+  float32 (pytom computes all of it in float32).
 * Orientations are the caller's matrices, and an index is the position
   of its orientation among those scored since :meth:`reset` (pytom keeps
   the index into its angle list).  The best starts at ``-inf`` and the
@@ -139,8 +168,8 @@ def missing_wedge(box, tilt_range=(-60.0, 60.0), tilt_axis: int = 2,
     return keep.expand(rshape).to(torch.float32).to(device).contiguous()
 
 
-def _check_spherical(mask: torch.Tensor, centre) -> None:
-    """Raise unless ``mask`` is a function of the distance from ``centre``:
+def _is_spherical(mask: torch.Tensor, centre) -> bool:
+    """Whether ``mask`` is a function of the distance from ``centre``:
     every value at one squared distance the same, within
     ``SPHERICAL_TOLERANCE`` of the largest."""
     grids = [(torch.arange(n, device=mask.device) - c) ** 2
@@ -155,11 +184,7 @@ def _check_spherical(mask: torch.Tensor, centre) -> None:
                     device=mask.device).scatter_reduce(0, r2, values, "amax")
     seen = torch.isfinite(lo)
     spread = float((hi[seen] - lo[seen]).max())
-    if spread > SPHERICAL_TOLERANCE * float(values.abs().max()):
-        raise ValueError(
-            "the mask is not spherical about the template's centre (n // 2 "
-            f"on each axis): values at one distance differ by {spread:.3g}; "
-            "rotated masks are not supported")
+    return spread <= SPHERICAL_TOLERANCE * float(values.abs().max())
 
 
 def _placed(volume: torch.Tensor, shape, centre, reflect: bool):
@@ -184,17 +209,58 @@ def _window(b: int, c: int, n: int, device) -> torch.Tensor:
     return torch.where(r <= c, r, r + n - b)
 
 
+def _normalised(tomogram: torch.Tensor) -> torch.Tensor:
+    """The tomogram in float64, brought to mean 0 and standard deviation 1
+    (left at mean 0 where it is flat)."""
+    v = tomogram.to(torch.float64)
+    v = v - v.mean()
+    scale = v.square().mean().sqrt()
+    if float(scale) > 0:
+        v = v / scale
+    return v
+
+
+def _tomogram_spectra(tomogram: torch.Tensor):
+    """The spectra of the normalised tomogram and of its square, complex128:
+    what a rotated mask's local statistics are correlated with."""
+    v = _normalised(tomogram)
+    spectrum = torch.fft.rfftn(v)
+    return spectrum, torch.fft.rfftn(v.square_())
+
+
+def _pruned_rfftn(rows: torch.Tensor, columns: torch.Tensor,
+                  grid: torch.Tensor, z_window: torch.Tensor,
+                  y_window: torch.Tensor) -> torch.Tensor:
+    """The ``rfftn`` of the box placed in ``rows`` (its lines of x, zero
+    elsewhere) in a volume of ``grid``'s shape: ``rfft`` along x on the
+    rows, into ``z_window`` of ``columns`` (zero elsewhere), ``fft`` along
+    z, into ``y_window`` of ``grid`` (zero elsewhere), ``fft`` along y."""
+    columns.index_copy_(0, z_window, torch.fft.rfft(rows, dim=2))
+    grid.index_copy_(1, y_window, torch.fft.fft(columns, dim=0))
+    return torch.fft.fft(grid, dim=1)
+
+
+def _forward_buffers(box, shape, dtype, device):
+    """Zero (rows, columns, grid) buffers of :func:`_pruned_rfftn` for a
+    ``box`` in a volume of ``shape``, real ``dtype``.  The grid is laid
+    out y outermost, so that the pass along y takes the other two axes as
+    one batch, with no copy."""
+    (bz, by, _), (depth, height, width) = box, shape
+    half = width // 2 + 1
+    return (torch.zeros((bz, by, width), dtype=dtype, device=device),
+            torch.zeros((depth, by, half), dtype=dtype.to_complex(),
+                        device=device),
+            torch.zeros((height, depth, half), dtype=dtype.to_complex(),
+                        device=device).permute(1, 0, 2))
+
+
 def _tomogram_terms(tomogram: torch.Tensor, mask: torch.Tensor, centre,
                     n_mask: float):
     """The normalised tomogram's spectrum (complex64) and ``1 / (N n
     sigma)`` (float32, 0 where sigma is under its floor), computed in
     float64."""
     shape = tuple(tomogram.shape)
-    v = tomogram.to(torch.float64)
-    v = v - v.mean()
-    scale = v.square().mean().sqrt()
-    if float(scale) > 0:
-        v = v / scale
+    v = _normalised(tomogram)
     spectrum = torch.fft.rfftn(v)
     padded = torch.zeros(shape, dtype=torch.float64, device=v.device)
     padded.view(-1)[_placed(mask, shape, centre, reflect=False)] = \
@@ -222,10 +288,14 @@ class TemplateMatcher:
     tensor, else ``'cuda'``).
 
     ``tomogram`` (3-D), ``template`` and ``mask`` (one shape, no larger
-    than the tomogram on any axis) are arrays or tensors; the mask must
-    be spherical about the template's centre ``n // 2``.  ``tilt_range``,
-    ``tilt_axis`` and ``projection_axis`` give the wedge
-    (:func:`missing_wedge`); ``interpolation`` the template's rotation."""
+    than the tomogram on any axis) are arrays or tensors; the mask's
+    weights must sum to more than 0.  A mask spherical about the
+    template's centre ``n // 2`` (``spherical`` True) has its local
+    statistics computed once; any other is rotated with the template and
+    has them recomputed for each orientation (the module's docstring).
+    ``tilt_range``, ``tilt_axis`` and ``projection_axis`` give the wedge
+    (:func:`missing_wedge`); ``interpolation`` the template's rotation,
+    and the mask's."""
 
     def __init__(self, tomogram, template, mask, *,
                  tilt_range=(-60.0, 60.0), tilt_axis: int = 2,
@@ -250,13 +320,21 @@ class TemplateMatcher:
         self.shape = tuple(int(s) for s in tomo.shape)
         self.box = tuple(int(s) for s in tmpl.shape)
         self.centre = tuple(b // 2 for b in self.box)
-        _check_spherical(mask_t, self.centre)
         self._n_mask = float(mask_t.to(torch.float64).sum())
         if not self._n_mask > 0:
             raise ValueError("the mask's weights sum to no more than 0")
+        self.spherical = _is_spherical(mask_t, self.centre)
         self._dev = dev
-        spectrum, self._inv = _tomogram_terms(
-            tomo, mask_t, self.centre, self._n_mask)
+        if self.spherical:
+            spectrum, self._inv = _tomogram_terms(
+                tomo, mask_t, self.centre, self._n_mask)
+        else:
+            spectrum, spectrum_sq = _tomogram_spectra(tomo)
+            self._inv = None
+            self._mask_sv = StaticVolume(mask_t, interpolation,
+                                         device=device)
+            self._mask_box = torch.empty(self.box, dtype=torch.float32,
+                                         device=dev)
         del tomo
         self.wedge = missing_wedge(self.box, tilt_range, tilt_axis,
                                    projection_axis, dev)
@@ -264,24 +342,26 @@ class TemplateMatcher:
         self._mask = mask_t
         self._box = torch.empty(self.box, dtype=torch.float32, device=dev)
         # the forward's buffers, zero but on the template's lines
-        (bz, by, _), (depth, height, width) = self.box, self.shape
-        half = width // 2 + 1
-        self._rows = torch.zeros((bz, by, width), dtype=torch.float32,
-                                 device=dev)
+        self._rows, self._columns, self._grid = _forward_buffers(
+            self.box, self.shape, torch.float32, dev)
         self._place = _placed(tmpl, self._rows.shape, self.centre,
                               reflect=True)
-        self._z_window = _window(bz, self.centre[0], depth, dev)
-        self._y_window = _window(by, self.centre[1], height, dev)
-        self._columns = torch.zeros((depth, by, half), dtype=torch.complex64,
-                                    device=dev)
-        # y outermost in memory: the pass along y takes the other two axes
-        # as one batch, with no copy
-        self._grid = torch.zeros((height, depth, half),
-                                 dtype=torch.complex64,
-                                 device=dev).permute(1, 0, 2)
-        # the spectrum in the layout the forward returns, so that the
-        # product reads the two alike
+        self._z_window = _window(self.box[0], self.centre[0], self.shape[0],
+                                 dev)
+        self._y_window = _window(self.box[1], self.centre[1], self.shape[1],
+                                 dev)
+        # the spectra in the layout the forward returns, so that the
+        # products read them alike
         self._spectrum = torch.empty_like(self._forward()).copy_(spectrum)
+        if not self.spherical:
+            # the rotated mask's moments: float64 buffers and spectra
+            self._wide = _forward_buffers(self.box, self.shape,
+                                          torch.float64, dev)
+            self._spectrum_wide = torch.empty_like(
+                self._wide_forward()).copy_(spectrum)
+            self._spectrum_sq_wide = torch.empty_like(
+                self._spectrum_wide).copy_(spectrum_sq)
+            del spectrum_sq
         del spectrum
         self.scores = torch.empty(self.shape, dtype=torch.float32,
                                   device=dev)
@@ -311,25 +391,38 @@ class TemplateMatcher:
 
     def _score(self, m: np.ndarray, index: int) -> None:
         with trace.span("match.template", device=self._dev):
-            t = self._template(m)
+            if self.spherical:
+                t = self._template(m)
+            else:
+                mask = self._mask_sv.affine(m, output=self._mask_box)
+                n = mask.sum()
+                t = self._template(m, mask, n)
             self._rows.view(-1).index_copy_(0, self._place, t.view(-1))
         with trace.span("match.correlate", device=self._dev):
             cc = self._correlation()
             trace.count("match.transforms", 2)
             trace.count("match.pruned_rows", self.box[0] * self.box[1])
+        inv = self._inv
+        if not self.spherical:
+            with trace.span("match.sigma", device=self._dev):
+                inv = self._local_inv(mask, n)
+                trace.count("match.transforms", 3)
+                trace.count("match.pruned_rows", self.box[0] * self.box[1])
+                trace.count("match.local_sigma")
         with trace.span("match.update", device=self._dev):
-            match_update(cc, self._inv, self.scores, self.indices, index)
+            match_update(cc, inv, self.scores, self.indices, index)
         trace.count("match.orientations")
 
     def _forward(self) -> torch.Tensor:
         """The ``rfftn`` of the template in the rows' buffer placed in a
         tomogram-sized zero volume, axis by axis on the lines that hold
         it."""
-        self._columns.index_copy_(0, self._z_window,
-                                  torch.fft.rfft(self._rows, dim=2))
-        self._grid.index_copy_(1, self._y_window,
-                               torch.fft.fft(self._columns, dim=0))
-        return torch.fft.fft(self._grid, dim=1)
+        return _pruned_rfftn(self._rows, self._columns, self._grid,
+                             self._z_window, self._y_window)
+
+    def _wide_forward(self) -> torch.Tensor:
+        """:meth:`_forward` of the float64 rows' buffer, complex128."""
+        return _pruned_rfftn(*self._wide, self._z_window, self._y_window)
 
     def _correlation(self) -> torch.Tensor:
         """The placed template's correlation with the tomogram,
@@ -337,17 +430,45 @@ class TemplateMatcher:
         return torch.fft.irfftn(self._forward().mul_(self._spectrum),
                                 s=self.shape, norm="forward")
 
-    def _template(self, m: np.ndarray) -> torch.Tensor:
+    def _local_inv(self, mask: torch.Tensor, n: torch.Tensor
+                   ) -> torch.Tensor:
+        """``1 / (N n sigma)`` under the rotated ``mask`` of weight ``n``, 0
+        where ``sigma`` is at most ``SIGMA_FLOOR`` of its largest, as a new
+        float32 tensor.  The two correlations, float64, are ``N n`` times
+        the local mean and mean square, so ``w = N n * mean_sq' - mean'^2``
+        is ``(N n sigma)^2``, and the map is ``w``'s reciprocal square
+        root."""
+        self._wide[0].view(-1).index_copy_(0, self._place,
+                                           mask.view(-1).double())
+        ft = self._wide_forward()
+        mean = torch.fft.irfftn(ft * self._spectrum_wide, s=self.shape,
+                                norm="forward")
+        w = torch.fft.irfftn(ft.mul_(self._spectrum_sq_wide), s=self.shape,
+                             norm="forward")
+        del ft
+        w.mul_(math.prod(self.shape) * n.double()).addcmul_(
+            mean, mean, value=-1.0)
+        del mean
+        w = w.to(torch.float32)
+        # sigma > SIGMA_FLOOR * max(sigma) where w > SIGMA_FLOOR^2 * max(w)
+        low = w <= SIGMA_FLOOR ** 2 * w.max().clamp_min(0.0)
+        return w.rsqrt_().masked_fill_(low, 0.0)
+
+    def _template(self, m: np.ndarray, mask: Optional[torch.Tensor] = None,
+                  n=None) -> torch.Tensor:
         """The template rotated by ``m``, through the wedge, normalised
-        under the mask and multiplied by it."""
+        under ``mask`` of weight ``n`` (the matcher's mask and its weight
+        by default) and multiplied by it."""
+        if mask is None:
+            mask, n = self._mask, self._n_mask
         self.sv.affine(m, output=self._box)
         ft = torch.fft.rfftn(self._box)
         ft.mul_(self.wedge)
         t = torch.fft.irfftn(ft, s=self.box)
-        t.sub_((t * self._mask).sum() / self._n_mask)
-        var = (t.square() * self._mask).sum() / self._n_mask
+        t.sub_((t * mask).sum() / n)
+        var = (t.square() * mask).sum() / n
         scale = torch.where(var > 0, var.rsqrt(), torch.zeros_like(var))
-        return t.mul_(self._mask).mul_(scale)
+        return t.mul_(mask).mul_(scale)
 
     def result(self, output: Optional[str] = None
                ) -> Tuple[object, object]:
