@@ -11,7 +11,7 @@ It imports torch, numpy, scipy and the port only (never JAX, never
 
 1. card   -- the ``nvidia-smi`` name and power limit, torch, CUDA and nvcc
    versions;
-2. build  -- ``nvcc`` builds the five kernels, ``csrc/affine_resample.cu``
+2. build  -- ``nvcc`` builds the six kernels, ``csrc/affine_resample.cu``
    (the walk port, A: warp patches, a cubic interior fast path and float4
    rows), ``csrc/affine_slab.cu`` (the slab port, B),
    ``csrc/backproject.cu`` (the reconstructions' back-projection, C: a
@@ -20,6 +20,7 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    D: D1 the stream body's ring, in one launch a shard or a launch a
    step, D2 the mesh SIRT's forward, on a line path for tilt series),
    ``csrc/match_update.cu`` (template matching's update),
+   ``csrc/match_zpass.cu`` (template matching's spectral pass along z),
    ``tools/backproject_baseline.cu`` (C's row-gather path before its
    redesign, timed beside it in phase 7) and
    ``tools/partial_sample_baseline.cu`` (D before its redesign, timed
@@ -99,9 +100,23 @@ It imports torch, numpy, scipy and the port only (never JAX, never
 4f. matcher_launches -- ``TemplateMatcher.match`` at tm512's shapes (a
    (256, 512, 512) tomogram, a 48^3 template): one call of 16
    orientations from a reset, the launch counters set to 0 just before,
-   launches the update kernel once an orientation; then each orientation
-   a call, its update bit for bit the plain version's on the matcher's
-   own correlation;
+   launches the update kernel once an orientation and the spectral pass
+   once an orientation; then each orientation a call, its update bit for
+   bit the plain version's on the matcher's own correlation; then the
+   same under an ellipsoidal mask (tm512-nsmask's): the spectral pass
+   twice an orientation (the correlation, the sigma's two products); and
+   for both masks, at tm512's depth and at a depth of 180 (not a power of
+   two: the kernel's shared-memory design), the maps after the call
+   against those of the same call with the spectral pass's plain version
+   on the card (``max_rel_err`` of the scores over their largest, at most
+   1e-4, and the indices that differ), the kernel's launches counted;
+4g. parity_match_zpass, match_zpass_times -- the spectral pass along z
+   (``csrc/match_zpass.cu``) against its plain version at tm512's shapes
+   (48 planes, (256, 512, 257) spectra laid out as the matcher keeps
+   them) and at a depth of 180: complex64 with one spectrum, complex128
+   with two, the largest difference over the largest |plain|; then its
+   device time alone beside its bound (the planes and spectra read once,
+   the results written once) and the plain version's;
 5. main   -- the main path at 250^3 float32, through the public API:
    ``StaticVolume`` 'linear' and 'filt_bspline' on 'cuda', ``.affine`` over
    16 random rotations and ``.affine_batch`` of the same 16, and the
@@ -238,6 +253,7 @@ without a CUDA device the script exits 1 before printing a result.
 import ctypes
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -331,7 +347,10 @@ MATCH_SWEEP = 64
 # of one TemplateMatcher.match call (tm512-match scores 16 a call)
 MATCH_BOX = 48
 MATCH_MASK_RADIUS = 20.0
+MATCH_SEMI_AXES = (20.0, 12.0, 9.0)    # tm512-nsmask's ellipsoid
 MATCH_CALL = 16
+# phases 4f and 4g: a tomogram depth that is not a power of two
+MATCH_ODD_DEPTH = 180
 # phase 4b: a row-gather matrix whose rows coordinate is scaled this much
 # spans more rows than the first tile's window can hold
 LARGE_SPAN_SCALE = 30.0
@@ -1080,37 +1099,60 @@ def matcher_phase(torch, np, dev, zero_launches, launch_counts):
     """Phase 4f: ``TemplateMatcher.match`` at tm512's shapes -- a (256,
     512, 512) tomogram, a 48^3 template under a spherical mask -- in one
     call of MATCH_CALL orientations from the maps ``reset()`` leaves, the
-    launch counters set to 0 just before it: the update kernel launches
-    once an orientation.  Then the same orientations a call each, every
-    update held bit for bit to the plain version's on the matcher's own
-    correlation (computed again from the template it placed last) and
-    ``1/sigma``.  Returns the call's launches and the
-    largest differences (``score_diff``)."""
+    launch counters set to 0 just before it: the update kernel and the
+    spectral pass launch once an orientation.  Then the same orientations
+    a call each, every update held bit for bit to the plain version's on
+    the matcher's own correlation (computed again from the template it
+    placed last) and ``1/sigma``.  Then the call under tm512-nsmask's
+    ellipsoidal mask: the spectral pass twice an orientation.  For both
+    masks, at tm512's depth and at MATCH_ODD_DEPTH, the call's maps are
+    held to those of the same call with the spectral pass's plain version,
+    and its launches counted.  Returns the calls' launches and the largest
+    differences."""
     from voltools_tpu_torch.kernels import match_update as MU
+    from voltools_tpu_torch.kernels import match_zpass as ZP
     from voltools_tpu_torch.models.matching import TemplateMatcher
     from voltools_tpu_torch.utils import transform_matrix
     gen = torch.Generator(device=dev).manual_seed(22)
     rng = np.random.default_rng(22)
     box = MATCH_BOX
-    g = (torch.arange(box, dtype=torch.float32, device=dev) - box // 2) ** 2
-    r = (g.view(-1, 1, 1) + g.view(1, -1, 1) + g.view(1, 1, -1)).sqrt_()
+    g = torch.arange(box, dtype=torch.float32, device=dev) - box // 2
+    axes = (g.view(-1, 1, 1), g.view(1, -1, 1), g.view(1, 1, -1))
+    r = sum(a.square() for a in axes).sqrt_()
     mask = (r <= MATCH_MASK_RADIUS).float()
+    # tm512-nsmask's ellipsoid, a sharp edge
+    ellipsoid = (sum((a / s).square() for a, s in zip(
+        axes, MATCH_SEMI_AXES)) <= 1.0).float()
     template = torch.randn((box,) * 3, generator=gen, device=dev)
     tomogram = torch.randn(TOMO_SHAPE, generator=gen, device=dev)
-    matcher = TemplateMatcher(tomogram, template, mask, device=str(dev))
-    del tomogram
     ms = np.stack([transform_matrix(
         rotation=tuple(rng.uniform(-180, 180, 3)), rotation_order="rzxz",
         center=(box // 2,) * 3) for _ in range(MATCH_CALL)]
     ).astype(np.float32)
-    matcher.match(ms[:1])               # builds kernel A and MU, plans FFTs
-    matcher.reset()
-    torch.cuda.synchronize()
-    zero_launches()
-    matcher.match(ms)
-    torch.cuda.synchronize()
-    counts = launch_counts()
+
+    def counted_call(mask, depth=TOMO_SHAPE[0], plain=False):
+        """The matcher's maps after one call of ``ms`` from a reset and
+        the call's launches, for the tomogram's first ``depth`` planes;
+        with ``plain`` the spectral pass is its plain version."""
+        kernel = ZP.match_zpass
+        if plain:
+            ZP.match_zpass = ZP.plain_match_zpass
+        try:
+            matcher = TemplateMatcher(tomogram[:depth], template, mask,
+                                      device=str(dev))
+            matcher.match(ms[:1])       # builds the kernels, plans FFTs
+            matcher.reset()
+            torch.cuda.synchronize()
+            zero_launches()
+            matcher.match(ms)
+            torch.cuda.synchronize()
+        finally:
+            ZP.match_zpass = kernel
+        return matcher, launch_counts()
+
+    matcher, counts = counted_call(mask)
     assert counts[MU.NAME] == MATCH_CALL, counts
+    assert counts[ZP.NAME] == MATCH_CALL, counts
     matcher.reset()
     worst = [0.0, 0, 0]
     for k, m in enumerate(ms):
@@ -1121,18 +1163,127 @@ def matcher_phase(torch, np, dev, zero_launches, launch_counts):
         diff = score_diff(torch, (matcher.scores, matcher.indices), plain)
         worst = [max(w, d) for w, d in zip(worst, diff)]
         assert diff == (0.0, 0, 0), ("TemplateMatcher", k, diff)
-    emit("matcher_launches", shape=list(TOMO_SHAPE), box=box,
-         orientations=MATCH_CALL, launches=counts, max_abs_err=worst[0],
-         max_bit_diff=worst[1], index_mismatch=worst[2],
-         method="one TemplateMatcher.match call of the orientations from "
-         "a reset, the counters set to 0 just before it; then each "
-         "orientation in a call of its own, the maps after it against "
-         "plain_match_update of the maps before it on the matcher's own "
-         "correlation (score_diff)")
     del matcher, plain
     torch.cuda.empty_cache()
+    matcher, ns_counts = counted_call(ellipsoid)
+    assert not matcher.spherical
+    assert ns_counts[MU.NAME] == MATCH_CALL, ns_counts
+    assert ns_counts[ZP.NAME] == 2 * MATCH_CALL, ns_counts
+    del matcher
+    torch.cuda.empty_cache()
+    # the kernel against its plain version in the matcher, both masks, at
+    # a depth of each of the kernel's designs
+    paths = {}
+    for name, m, per in (("spherical", mask, 1), ("ellipsoid", ellipsoid, 2)):
+        for depth in (TOMO_SHAPE[0], MATCH_ODD_DEPTH):
+            maps = []
+            for plain in (False, True):
+                matcher, moved = counted_call(m, depth, plain)
+                maps.append((matcher.scores.clone(),
+                             matcher.indices.clone()))
+                assert moved[ZP.NAME] == (0 if plain else per * MATCH_CALL)
+                del matcher
+                torch.cuda.empty_cache()
+            (a, ia), (b, ib) = maps
+            largest = float(b.abs().max())
+            apart = (a - b).abs()
+            key = f"{name} depth {depth}"
+            paths[key] = {"max_rel_err": float(apart.max()) / largest,
+                          "indices_differ": int((ia != ib).sum()),
+                          "launches": per * MATCH_CALL}
+            assert paths[key]["max_rel_err"] <= 1e-4, (key, paths[key])
+            del maps, a, b, ia, ib, apart
+    del tomogram
+    torch.cuda.empty_cache()
+    emit("matcher_launches", shape=list(TOMO_SHAPE), box=box,
+         orientations=MATCH_CALL, launches=counts,
+         launches_nsmask=ns_counts, max_abs_err=worst[0],
+         max_bit_diff=worst[1], index_mismatch=worst[2],
+         kernel_against_plain=paths,
+         method="one TemplateMatcher.match call of the orientations from "
+         "a reset, the counters set to 0 just before it (launches_nsmask: "
+         "the same under an ellipsoidal mask); then each orientation in a "
+         "call of its own, the maps after it against plain_match_update "
+         "of the maps before it on the matcher's own correlation "
+         "(score_diff); kernel_against_plain: the call's maps against "
+         "those of the same call with the spectral pass's plain version, "
+         "at tm512's depth and at a depth that is not a power of two, "
+         "max_rel_err the largest |difference| of the scores over their "
+         "largest |score|, indices_differ the indices that differ (near "
+         "ties of two orientations), launches the kernel's in the call")
     return {"launches": counts[MU.NAME], "max_abs_err": worst[0],
-            "max_bit_diff": worst[1], "index_mismatch": worst[2]}
+            "max_bit_diff": worst[1], "index_mismatch": worst[2],
+            "zpass_launches": {"match": counts[ZP.NAME],
+                               "match_nsmask": ns_counts[ZP.NAME]},
+            "kernel_against_plain": paths}
+
+
+def match_zpass_phase(torch, np, dev):
+    """Phase 4g: the spectral pass along z against its plain version at
+    tm512's shapes, both dtypes; its device time alone beside its bound
+    and the plain version's.  Then the same at MATCH_ODD_DEPTH, which the
+    kernel's shared-memory design takes.  Returns the numbers for the
+    kernels' line."""
+    from voltools_tpu_torch.kernels import match_zpass as ZP
+    from voltools_tpu_torch.models.matching import _spectral_layout
+    box = MATCH_BOX
+    gen = torch.Generator(device=dev).manual_seed(24)
+
+    def at_depth(shape):
+        half = shape[2] // 2 + 1
+        out = {"shape": list(shape), "box": box}
+        for dtype in (torch.complex64, torch.complex128):
+            # the planes laid out as the matcher's forward returns them
+            planes = torch.randn((box, half, shape[1]), dtype=dtype,
+                                 generator=gen, device=dev).permute(0, 2, 1)
+            spectra = tuple(_spectral_layout(shape, dtype, dev).copy_(
+                torch.randn((shape[0], shape[1], half), dtype=dtype,
+                            generator=gen, device=dev))
+                for _ in range(ZP.SPECTRA[dtype]))
+            got = tuple(torch.empty_like(s) for s in spectra)
+            want = tuple(torch.empty_like(s) for s in spectra)
+            launches = launches_of(ZP.NAME)
+            ZP.match_zpass(planes, spectra, got, box // 2)
+            torch.cuda.synchronize()
+            assert since(launches, ZP.NAME) == (1,)
+            ZP.plain_match_zpass(planes, spectra, want, box // 2)
+            err = max(float((g - w).abs().max() / w.abs().max())
+                      for g, w in zip(got, want))
+            # an FFT's rounding: a few units of the last place a level
+            eps = torch.finfo(dtype.to_real()).eps
+            assert err <= 10 * eps * math.log2(shape[0]), (dtype, err)
+            size = planes.element_size()
+            n_bytes = size * (planes.numel()
+                              + 2 * len(spectra) * spectra[0].numel())
+            kernel_ms = time_ms(torch, lambda: ZP.match_zpass(
+                planes, spectra, got, box // 2), reps=20)
+            plain_ms = time_ms(torch, lambda: ZP.plain_match_zpass(
+                planes, spectra, want, box // 2), reps=5)
+            name = str(dtype).split(".")[-1]
+            out[name] = {"spectra": len(spectra), "max_rel_err": err,
+                         "ms": kernel_ms, "plain_ms": plain_ms,
+                         "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+                         "bytes": n_bytes}
+            del planes, spectra, got, want
+            torch.cuda.empty_cache()
+        return out
+
+    out = at_depth(TOMO_SHAPE)
+    odd = (MATCH_ODD_DEPTH,) + TOMO_SHAPE[1:]
+    out[f"depth {MATCH_ODD_DEPTH}"] = at_depth(odd)
+    emit("parity_match_zpass", shape=out["shape"], box=box,
+         max_rel_err={f"{k} depth {d['shape'][0]}": d[k]["max_rel_err"]
+                      for d in (out, out[f"depth {MATCH_ODD_DEPTH}"])
+                      for k in ("complex64", "complex128")},
+         method="the kernel against plain_match_zpass on the card: the "
+         "largest |difference| over the largest |plain| of each result, at "
+         "tm512's depth (the register design) and at a depth that is not "
+         "a power of two (the shared-memory design)")
+    emit("match_zpass_times", **out,
+         method="CUDA events around 20 back-to-back launches (the plain "
+         "version 5), warm; bound_ms the planes and the spectra read once "
+         "and the results written once at 3.35 TB/s")
+    return out
 
 
 def main():
@@ -1151,6 +1302,7 @@ def main():
     from voltools_tpu_torch.kernels import affine_slab as S
     from voltools_tpu_torch.kernels import backproject as BP
     from voltools_tpu_torch.kernels import match_update as MU
+    from voltools_tpu_torch.kernels import match_zpass as ZP
     from voltools_tpu_torch.kernels import partial_sample as PS
     from voltools_tpu_torch.kernels import planner
     from voltools_tpu_torch.kernels.layout import pitched
@@ -1239,7 +1391,7 @@ def main():
         """The planner's kernel for each resampling launch, given as
         (matrices, shape, order), and C's ``back_projections``."""
         counts = {S.NAME: 0, K.NAME: 0, BP.NAME: back_projections, D1: 0,
-                  D2: 0, MU.NAME: 0}
+                  D2: 0, MU.NAME: 0, ZP.NAME: 0}
         for ms, shape, order in launches:
             counts[S.NAME if routed(ms, shape, order) is not None
                    else K.NAME] += 1
@@ -1264,7 +1416,7 @@ def main():
 
     # --------------------------------------------------------- 2. build
     # one nvcc per source, all started together
-    kernel_modules = (K, S, BP, PS, MU)
+    kernel_modules = (K, S, BP, PS, MU, ZP)
     cached = {m.NAME: _build.library_path(
         m.NAME, m.LIBRARY.defines).is_file() for m in kernel_modules}
 
@@ -1507,6 +1659,8 @@ def main():
     match_times = match_update_phase(torch, np, dev)
     # ------------------ 4f. TemplateMatcher.match: the update's launches
     match_path = matcher_phase(torch, np, dev, zero_launches, launch_counts)
+    # ------------ 4g. the spectral pass along z vs its plain version
+    zpass_times = match_zpass_phase(torch, np, dev)
 
     # --------------------------- 4b. C vs its plain version, bit for bit
     from voltools_tpu_torch.parallel.sharded import _shifted
@@ -2551,7 +2705,7 @@ def main():
         return body, routes
 
     def counted(routes):
-        n = {S.NAME: 0, K.NAME: 0, MU.NAME: 0}
+        n = {S.NAME: 0, K.NAME: 0, MU.NAME: 0, ZP.NAME: 0}
         for r in routes:
             n[S.NAME if r.plan is not None else K.NAME] += 1
         return n
@@ -2756,7 +2910,7 @@ def main():
     recon_rows["sirt"] = err
     del res, got, sirt_one
     assert all(v > 0 for k, v in shard_launches.items()
-               if k != MU.NAME), shard_launches
+               if k not in (MU.NAME, ZP.NAME)), shard_launches
     assert S.overflows(dev) == 0
     check_seconds = time.perf_counter() - t0
 
@@ -3389,6 +3543,7 @@ def main():
                 "sharded": shard_launches[name],
                 "examples": example_launches[name]}
     assert main_tilt[MU.NAME] == 0, main_tilt
+    assert main_tilt[ZP.NAME] == 0, main_tilt
     kernels += [{
         "name": D1, "route": "cuda", "source": PS.SOURCE,
         "replaces": PS.REPLACES[D1], "launches": main_tilt[D1],
@@ -3475,6 +3630,33 @@ def main():
         "tomogram's shape (phase 4f); the errors the largest of phases 4e "
         "and 4f (score_diff)",
         "tolerance": "bit for bit (the scores' bit patterns)",
+    }, {
+        "name": ZP.NAME, "route": "cuda", "source": ZP.SOURCE,
+        "replaces": "no TPU kernel (the JAX package has no template "
+        "matching): the correlation's whole-grid forward pass, the "
+        "product with the spectrum (two under a rotated mask) and the "
+        "inverse's pass along z, in TemplateMatcher",
+        "launches": match_path["zpass_launches"]["match"],
+        "launches_by_path": dict(by_path(ZP.NAME),
+                                 **match_path["zpass_launches"]),
+        "max_abs_err": None,
+        "max_rel_err": {k: zpass_times[k]["max_rel_err"]
+                        for k in ("complex64", "complex128")},
+        "ms": zpass_times["complex64"]["ms"],
+        "plain_ms": zpass_times["complex64"]["plain_ms"],
+        "bound_ms": zpass_times["complex64"]["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "complex128": zpass_times["complex128"],
+        "kernel_against_plain": match_path["kernel_against_plain"],
+        "depth_180": zpass_times[f"depth {MATCH_ODD_DEPTH}"],
+        "shape": zpass_times["shape"],
+        "matrices": "none: 48 random planes and random spectra at tm512's "
+        "shapes, ms a launch (complex64, one spectrum; complex128 the "
+        "sigma's two); launches those of one TemplateMatcher.match call of "
+        f"{MATCH_CALL} orientations under a spherical mask (match) and an "
+        "ellipsoidal one (match_nsmask), phase 4f",
+        "tolerance": "10 units of the last place times log2 N of the "
+        "largest |plain|: two FFTs' rounding",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

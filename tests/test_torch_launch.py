@@ -13,7 +13,8 @@ import torch
 import voltools_tpu_torch  # noqa: F401 (declares every library)
 from voltools_tpu_torch.kernels import (_build, affine_resample,
                                         affine_slab, backproject,
-                                        match_update, partial_sample)
+                                        match_update, match_zpass,
+                                        partial_sample)
 from voltools_tpu_torch.utils import trace
 
 PACKAGE = Path(_build.__file__).resolve().parent.parent
@@ -42,6 +43,9 @@ LAUNCHERS = {
     "MU": (match_update, "_LAUNCH",
            "match_update launch failed: fake failure (7)",
            ("match_update",), True),
+    "SZ": (match_zpass, "_LAUNCH",
+           "match_zpass launch failed: fake failure (7)",
+           ("match_zpass",), True),
     "D1 step": (partial_sample, "_SAMPLE",
                 "partial_sample launch failed: fake failure (7)",
                 ("partial_sample",), True),
@@ -59,7 +63,7 @@ LAUNCH_KEYS = {"launches.affine_resample", "launches.affine_slab",
                "launches.affine_slab.rows", "launches.backproject",
                "launches.partial_sample", "launches.partial_sample_ring",
                "launches.partial_project", "launches.partial_project.line",
-               "launches.match_update"}
+               "launches.match_update", "launches.match_zpass"}
 DEVICE_COUNTERS = {"fast_path_voxels", "overflows", "window_misses",
                    "improved_voxels"}
 

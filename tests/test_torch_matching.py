@@ -21,6 +21,7 @@ from portbench.reference import matching as reference
 from portbench.reference import matching_nsmask as reference_nsmask
 from portbench.reference import resample
 from voltools_tpu_torch import TemplateMatcher
+from voltools_tpu_torch.kernels.match_zpass import window
 from voltools_tpu_torch.models import missing_wedge
 from voltools_tpu_torch.utils import trace
 
@@ -235,6 +236,15 @@ def _placed_volume(template, shape):
     return volume
 
 
+def _along_z(planes, shape, box, centre):
+    """The forward's planes at their z window of zero columns, ``fft``
+    along z: the placed volume's ``rfftn``."""
+    columns = planes.new_zeros((shape[0],) + tuple(planes.shape[1:]))
+    columns.index_copy_(0, window(box[0], centre[0], shape[0],
+                                  planes.device), planes)
+    return torch.fft.fft(columns, dim=0)
+
+
 @pytest.mark.parametrize("shape,box", FORWARD_CASES)
 def test_the_forward_on_the_templates_lines_is_rfftn_of_the_placed_volume(
         shape, box):
@@ -245,7 +255,8 @@ def test_the_forward_on_the_templates_lines_is_rfftn_of_the_placed_volume(
                          device="cpu")
     tm._rows.view(-1).index_copy_(0, tm._place,
                                   torch.from_numpy(template).view(-1))
-    got = tm._forward()
+    # the forward stops at the planes; the spectral pass takes z
+    got = _along_z(tm._forward(), shape, box, tm.centre)
     want = torch.fft.rfftn(torch.from_numpy(_placed_volume(template, shape)))
     assert got.shape == want.shape and got.dtype == torch.complex64
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
@@ -309,12 +320,15 @@ def test_on_the_card_the_forward_at_tm512s_shapes_is_rfftn_and_counted(card):
     tm = TemplateMatcher(tomogram, template, torch.ones(box, device="cuda"))
     del tomogram
     tm._rows.view(-1).index_copy_(0, tm._place, template.view(-1))
-    got = tm._forward()
+    # the forward's planes through the spectral kernel and the inverse
+    # along y and x: the correlation of the placed volume's rfftn
+    got = tm._correlation()
+    assert got.is_contiguous()
     placed = torch.from_numpy(_placed_volume(template.cpu().numpy(), shape))
-    want = torch.fft.rfftn(placed.cuda())
+    want = torch.fft.irfftn(torch.fft.rfftn(placed.cuda()) * tm._spectrum,
+                            s=shape, norm="forward")
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
     del got, want, placed
-    assert tm._correlation().is_contiguous()
     ms = traffic.rotation_pool(np.random.default_rng(23), 4, box)
     before = trace.counts()
     trace.start()

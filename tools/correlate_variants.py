@@ -6,9 +6,16 @@ Two parts:
 
 * ``score``: ``TemplateMatcher.match`` of 16 orientations under
   ``torch.profiler`` (CUDA activity), its kernels by name, in us an
-  orientation.  The matcher is imported from ``root`` (the first
-  argument after ``score``; default: this repository), so another
-  commit's tree can be profiled in the same call.
+  orientation, under tm512's spherical mask and under tm512-nsmask's
+  ellipsoidal mask and elongated template
+  (``portbench/drivers/template_match_nsmask.py``'s construction); and
+  the spans apart, each kernel by name in us a call: ``match.correlate``
+  (``_correlation``) and, under the ellipsoid, ``match.sigma``
+  (``_local_inv`` on the rotated mask of one orientation), with the
+  correlation's strides as the update kernel receives it.  The matcher is
+  imported from ``root`` (the first argument after ``score``; default:
+  this repository), so another commit's tree can be profiled in the same
+  call.
 * ``variants``: the span ``match.correlate``'s work written out in
   variants, from one placed random template and one random spectrum:
 
@@ -92,7 +99,8 @@ def copy_window(dst, dim, src, c):
 
 
 def variants(torch, dev="cuda"):
-    from voltools_tpu_torch.models.matching import _placed, _window
+    from voltools_tpu_torch.kernels.match_zpass import window as _window
+    from voltools_tpu_torch.models.matching import _placed
     dev = torch.device(dev)
     Z, Y, X = SHAPE
     xh = X // 2 + 1
@@ -204,24 +212,49 @@ def score(torch, root):
     from voltools_tpu_torch import TemplateMatcher
     from portbench.drivers.template_match import (spherical_mask,
                                                   uniform_rotations)
+    from portbench.drivers.template_match_nsmask import (ellipsoidal_mask,
+                                                         elongated_blobs)
     import numpy as np
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(7)
-    tomogram = torch.randn(SHAPE, device=dev, generator=gen)
-    template = torch.randn((BOX,) * 3, device=dev, generator=gen)
-    mask = spherical_mask(BOX, 20.0, 2.0, dev)
-    tm = TemplateMatcher(tomogram, template, mask, device="cuda")
-    del tomogram
     rng = np.random.default_rng(11)
     ms = uniform_rotations(rng, ORIENTATIONS, (BOX // 2,) * 3)
-    tm.match(ms)
-    kernels = profiled(torch, lambda: tm.match(ms), 3)
-    per = {k: v / ORIENTATIONS for k, v in kernels.items()}
-    ms_call = event_ms(torch, lambda: tm.match(ms), 10)
-    return {"root": root, "kernels_us": per,
-            "device_us": sum(per.values()),
+    out = {"root": root}
+    for name in ("spherical", "nsmask"):
+        gen = torch.Generator(device=dev).manual_seed(7)
+        tomogram = torch.randn(SHAPE, device=dev, generator=gen)
+        if name == "spherical":
+            template = torch.randn((BOX,) * 3, device=dev, generator=gen)
+            mask = spherical_mask(BOX, 20.0, 2.0, dev)
+        else:
+            # tm512-nsmask's (portbench/configs/tm512-nsmask.json)
+            template = elongated_blobs(BOX, 6, (2.0, 4.0), (14.0, 8.0, 5.0),
+                                       gen, dev)
+            mask = ellipsoidal_mask(BOX, (20.0, 12.0, 9.0), 2.0, dev)
+        torch.cuda.reset_peak_memory_stats()
+        tm = TemplateMatcher(tomogram, template, mask, device="cuda")
+        del tomogram
+        tm.match(ms)
+        kernels = profiled(torch, lambda: tm.match(ms), 3)
+        per = {k: v / ORIENTATIONS for k, v in kernels.items()}
+        ms_call = event_ms(torch, lambda: tm.match(ms), 10)
+        cc = tm._correlation()
+        spans = {"match.correlate": profiled(torch, tm._correlation, 10)}
+        if not tm.spherical:
+            rotated = tm._mask_sv.affine(ms[0], output=tm._mask_box)
+            n = rotated.sum()
+            spans["match.sigma"] = profiled(
+                torch, lambda: tm._local_inv(rotated, n), 10)
+        out[name] = {
+            "kernels_us": per, "device_us": sum(per.values()),
+            "spans_us": spans,
+            "span_device_us": {k: sum(v.values()) for k, v in spans.items()},
+            "cc_stride": list(cc.stride()),
+            "cc_contiguous": cc.is_contiguous(),
             "event_ms_an_orientation": ms_call / ORIENTATIONS,
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del tm, cc
+        torch.cuda.empty_cache()
+    return out
 
 
 def main():

@@ -21,7 +21,7 @@ each orientation, a 4x4 pull-back matrix about the template's centre
    width;
 2. ``match.correlate``: the ``rfftn`` of the template placed in a
    tomogram-sized zero volume, taken axis by axis on the lines that hold
-   it (below), the product with the tomogram's spectrum, ``irfftn``;
+   it, the product with the tomogram's spectrum, ``irfftn`` (below);
 3. ``match.update``: the correlation divided by ``n * sigma_local`` is the
    score; where it is greater than the best so far, the best and the
    orientation's index are replaced, in one pass of the update kernel
@@ -41,7 +41,7 @@ correlation and the update a fourth span computes ``sigma_local`` under
 * ``match.sigma``: ``M_r`` placed as the template is, its forward
   transform, the products with the spectra of the normalised tomogram
   ``V`` and of its square (both kept from construction), two
-  ``irfftn``: ``N n_r`` times the local mean and mean square under
+  ``irfftn`` (below): ``N n_r`` times the local mean and mean square under
   ``M_r``; from them the orientation's ``1 / (N n_r sigma)`` map, 0 where
   ``sigma`` is at most ``SIGMA_FLOOR`` of that orientation's largest.
   All of it up to ``mean_sq - mean^2`` is float64 (the spectra kept as
@@ -54,15 +54,20 @@ That is five tomogram-sized transforms an orientation where a spherical
 mask takes two.
 
 The forward transform skips the placed template's zeros: ``rfft`` along x
-on the template's ``bz * by`` rows; that copied into the z window of a
-zero buffer of the tomogram's depth, ``fft`` along z on its ``by * (X //
-2 + 1)`` columns; that copied into the y window of a tomogram-sized zero
-grid, and one ``fft`` along y over the whole grid.
-The windows' zeros are written once, at construction.  Three
-unnormalised forward transforms in turn, they are the ``rfftn`` of the
-placed volume.  The whole-grid pass comes last so that y is innermost in
-its output: ``irfftn`` then returns the correlation contiguous, as the
-update kernel reads it.
+on the template's ``bz * by`` rows; that copied into the y window of a
+zero buffer of the template's ``bz`` planes (its zeros written once, at
+construction), ``fft`` along y on them.  The rest of each correlation is
+one spectral pass along z (:mod:`..kernels.match_zpass`): for each (y, x')
+column it places the planes at the z window, takes the ``fft`` along z,
+the product with the spectrum (under a rotated mask, with both spectra)
+and the ``ifft`` along z, reading each spectrum once and writing each
+result once; torch then takes the inverse along y and the C2R along x.
+With y the last c2c pass, the C2R returns the correlation contiguous, as
+the update kernel reads it, with no copy; so the pass takes z, and the
+spectra are kept laid out as it reads them.  On the card the pass is one
+hand kernel, which takes any depth up to ``match_zpass.MAX_POINTS``; on
+the CPU it is the kernel's plain version, torch's ``fft``, product and
+``ifft`` along z.
 
 So the score at voxel ``x`` is ``sum_y T(y) V(x + y - c) / (n
 sigma(x))``, ``T`` the normalised template, with ``sigma(x)`` the
@@ -110,6 +115,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels import match_zpass as zpass
 from ..kernels.match_update import match_update
 from ..transforms import _as_tensor, _device
 from ..utils import trace
@@ -200,15 +206,6 @@ def _placed(volume: torch.Tensor, shape, centre, reflect: bool):
             * shape[2] + idx[2].view(1, 1, -1)).reshape(-1)
 
 
-def _window(b: int, c: int, n: int, device) -> torch.Tensor:
-    """Where the lines of a box of ``b`` go on an axis of ``n``: the box
-    placed by :func:`_placed` (point-reflected about ``c``) in a periodic
-    box of ``b`` holds at line ``r`` what the same placing in ``n`` holds
-    at ``r`` for ``r <= c`` and at ``r + n - b`` after it."""
-    r = torch.arange(b, device=device)
-    return torch.where(r <= c, r, r + n - b)
-
-
 def _normalised(tomogram: torch.Tensor) -> torch.Tensor:
     """The tomogram in float64, brought to mean 0 and standard deviation 1
     (left at mean 0 where it is flat)."""
@@ -228,30 +225,46 @@ def _tomogram_spectra(tomogram: torch.Tensor):
     return spectrum, torch.fft.rfftn(v.square_())
 
 
-def _pruned_rfftn(rows: torch.Tensor, columns: torch.Tensor,
-                  grid: torch.Tensor, z_window: torch.Tensor,
-                  y_window: torch.Tensor) -> torch.Tensor:
-    """The ``rfftn`` of the box placed in ``rows`` (its lines of x, zero
-    elsewhere) in a volume of ``grid``'s shape: ``rfft`` along x on the
-    rows, into ``z_window`` of ``columns`` (zero elsewhere), ``fft`` along
-    z, into ``y_window`` of ``grid`` (zero elsewhere), ``fft`` along y."""
-    columns.index_copy_(0, z_window, torch.fft.rfft(rows, dim=2))
-    grid.index_copy_(1, y_window, torch.fft.fft(columns, dim=0))
-    return torch.fft.fft(grid, dim=1)
+def _pruned_planes(rows: torch.Tensor, planes: torch.Tensor,
+                   y_window: torch.Tensor) -> torch.Tensor:
+    """The box placed in ``rows`` (its lines of x, zero elsewhere)
+    transformed along x and y on its planes: ``rfft`` along x on the rows,
+    into ``y_window`` of ``planes`` (zero elsewhere), ``fft`` along y.
+    ``planes`` is laid out y innermost, so the pass along y takes the
+    other two axes as one batch, with no copy, and returns y innermost, as
+    the spectral pass reads it."""
+    planes.index_copy_(1, y_window, torch.fft.rfft(rows, dim=2))
+    return torch.fft.fft(planes, dim=1)
 
 
 def _forward_buffers(box, shape, dtype, device):
-    """Zero (rows, columns, grid) buffers of :func:`_pruned_rfftn` for a
-    ``box`` in a volume of ``shape``, real ``dtype``.  The grid is laid
-    out y outermost, so that the pass along y takes the other two axes as
-    one batch, with no copy."""
-    (bz, by, _), (depth, height, width) = box, shape
-    half = width // 2 + 1
-    return (torch.zeros((bz, by, width), dtype=dtype, device=device),
-            torch.zeros((depth, by, half), dtype=dtype.to_complex(),
-                        device=device),
-            torch.zeros((height, depth, half), dtype=dtype.to_complex(),
-                        device=device).permute(1, 0, 2))
+    """Zero (rows, planes) buffers of :func:`_pruned_planes` for a ``box``
+    in a volume of ``shape``, real ``dtype``."""
+    (bz, by, _), (_, height, width) = box, shape
+    rows = torch.zeros((bz, by, width), dtype=dtype, device=device)
+    return rows, torch.zeros((bz, width // 2 + 1, height),
+                             dtype=dtype.to_complex(),
+                             device=device).permute(0, 2, 1)
+
+
+def _spectral_layout(shape, dtype, device) -> torch.Tensor:
+    """An empty (Z, Y, X // 2 + 1) spectrum of ``dtype`` laid out x'
+    outermost and y innermost, as the spectral pass reads its spectra and
+    writes its results: the inverse's pass along y then takes the other
+    two axes as one batch, with no copy."""
+    depth, height, width = shape
+    return torch.empty((width // 2 + 1, depth, height), dtype=dtype,
+                       device=device).permute(1, 2, 0)
+
+
+def _irfft_yx(spectrum: torch.Tensor, shape) -> torch.Tensor:
+    """The inverse along y and x, unnormalised, of a spectrum the spectral
+    pass inverted along z: ``irfftn`` over the first two axes of its view
+    (y, x', z), whose one c2c pass torch runs first and returns y
+    innermost, so that the C2R along x returns (Z, Y, X) contiguous, with
+    no copy."""
+    return torch.fft.irfftn(spectrum.permute(1, 2, 0), s=shape[1:],
+                            dim=(0, 1), norm="forward").permute(2, 0, 1)
 
 
 def _tomogram_terms(tomogram: torch.Tensor, mask: torch.Tensor, centre,
@@ -293,6 +306,8 @@ class TemplateMatcher:
     template's centre ``n // 2`` (``spherical`` True) has its local
     statistics computed once; any other is rotated with the template and
     has them recomputed for each orientation (the module's docstring).
+    On a CUDA device the tomogram's depth is at most
+    ``match_zpass.MAX_POINTS``, the spectral kernel's longest column.
     ``tilt_range``, ``tilt_axis`` and ``projection_axis`` give the wedge
     (:func:`missing_wedge`); ``interpolation`` the template's rotation,
     and the mask's."""
@@ -319,6 +334,10 @@ class TemplateMatcher:
                              f"than the tomogram {tuple(tomo.shape)}")
         self.shape = tuple(int(s) for s in tomo.shape)
         self.box = tuple(int(s) for s in tmpl.shape)
+        if dev.type == "cuda" and not zpass.supported(self.shape[0], dev):
+            raise ValueError(f"the spectral pass takes a depth of at most "
+                             f"{zpass.MAX_POINTS} on a CUDA device, got "
+                             f"{self.shape[0]}")
         self.centre = tuple(b // 2 for b in self.box)
         self._n_mask = float(mask_t.to(torch.float64).sum())
         if not self._n_mask > 0:
@@ -342,23 +361,22 @@ class TemplateMatcher:
         self._mask = mask_t
         self._box = torch.empty(self.box, dtype=torch.float32, device=dev)
         # the forward's buffers, zero but on the template's lines
-        self._rows, self._columns, self._grid = _forward_buffers(
-            self.box, self.shape, torch.float32, dev)
+        self._buffers = _forward_buffers(self.box, self.shape, torch.float32,
+                                         dev)
+        self._rows = self._buffers[0]
         self._place = _placed(tmpl, self._rows.shape, self.centre,
                               reflect=True)
-        self._z_window = _window(self.box[0], self.centre[0], self.shape[0],
-                                 dev)
-        self._y_window = _window(self.box[1], self.centre[1], self.shape[1],
-                                 dev)
-        # the spectra in the layout the forward returns, so that the
-        # products read them alike
-        self._spectrum = torch.empty_like(self._forward()).copy_(spectrum)
+        self._y_window = zpass.window(self.box[1], self.centre[1],
+                                      self.shape[1], dev)
+        # the spectra in the layout the spectral pass reads
+        self._spectrum = _spectral_layout(self.shape, torch.complex64,
+                                          dev).copy_(spectrum)
         if not self.spherical:
             # the rotated mask's moments: float64 buffers and spectra
             self._wide = _forward_buffers(self.box, self.shape,
                                           torch.float64, dev)
-            self._spectrum_wide = torch.empty_like(
-                self._wide_forward()).copy_(spectrum)
+            self._spectrum_wide = _spectral_layout(
+                self.shape, torch.complex128, dev).copy_(spectrum)
             self._spectrum_sq_wide = torch.empty_like(
                 self._spectrum_wide).copy_(spectrum_sq)
             del spectrum_sq
@@ -402,6 +420,7 @@ class TemplateMatcher:
             cc = self._correlation()
             trace.count("match.transforms", 2)
             trace.count("match.pruned_rows", self.box[0] * self.box[1])
+            trace.count("match.zpass_products")
         inv = self._inv
         if not self.spherical:
             with trace.span("match.sigma", device=self._dev):
@@ -409,26 +428,31 @@ class TemplateMatcher:
                 trace.count("match.transforms", 3)
                 trace.count("match.pruned_rows", self.box[0] * self.box[1])
                 trace.count("match.local_sigma")
+                trace.count("match.zpass_products", 2)
         with trace.span("match.update", device=self._dev):
             match_update(cc, inv, self.scores, self.indices, index)
         trace.count("match.orientations")
 
-    def _forward(self) -> torch.Tensor:
-        """The ``rfftn`` of the template in the rows' buffer placed in a
-        tomogram-sized zero volume, axis by axis on the lines that hold
-        it."""
-        return _pruned_rfftn(self._rows, self._columns, self._grid,
-                             self._z_window, self._y_window)
+    def _forward(self, buffers=None) -> torch.Tensor:
+        """The template in the rows' buffer of ``buffers`` (default: the
+        float32 ones) placed in a tomogram-sized zero volume, transformed
+        along x and y on the lines that hold it: its planes, which the
+        spectral pass takes along z."""
+        return _pruned_planes(*(buffers or self._buffers), self._y_window)
 
-    def _wide_forward(self) -> torch.Tensor:
-        """:meth:`_forward` of the float64 rows' buffer, complex128."""
-        return _pruned_rfftn(*self._wide, self._z_window, self._y_window)
+    def _products(self, planes: torch.Tensor, *spectra):
+        """The spectral pass: ``planes``' forward along z, the product with
+        each of ``spectra``, the inverse along z, each into a new tensor
+        (:mod:`..kernels.match_zpass`)."""
+        outs = tuple(torch.empty_like(s) for s in spectra)
+        zpass.match_zpass(planes, spectra, outs, self.centre[0])
+        return outs
 
     def _correlation(self) -> torch.Tensor:
         """The placed template's correlation with the tomogram,
-        unnormalised, as a new float32 tensor."""
-        return torch.fft.irfftn(self._forward().mul_(self._spectrum),
-                                s=self.shape, norm="forward")
+        unnormalised, as a new contiguous float32 tensor."""
+        product, = self._products(self._forward(), self._spectrum)
+        return _irfft_yx(product, self.shape)
 
     def _local_inv(self, mask: torch.Tensor, n: torch.Tensor
                    ) -> torch.Tensor:
@@ -440,12 +464,10 @@ class TemplateMatcher:
         root."""
         self._wide[0].view(-1).index_copy_(0, self._place,
                                            mask.view(-1).double())
-        ft = self._wide_forward()
-        mean = torch.fft.irfftn(ft * self._spectrum_wide, s=self.shape,
-                                norm="forward")
-        w = torch.fft.irfftn(ft.mul_(self._spectrum_sq_wide), s=self.shape,
-                             norm="forward")
-        del ft
+        mean, w = self._products(self._forward(self._wide),
+                                 self._spectrum_wide, self._spectrum_sq_wide)
+        mean = _irfft_yx(mean, self.shape)
+        w = _irfft_yx(w, self.shape)
         w.mul_(math.prod(self.shape) * n.double()).addcmul_(
             mean, mean, value=-1.0)
         del mean
