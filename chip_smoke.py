@@ -96,7 +96,10 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    the indices it changed; then its device time beside its bound (the
    three maps read once; every voxel written, after a reset), the plain
    four torch kernels and the share of voxels each orientation improves,
-   over a sweep of fresh correlations from a reset;
+   over a sweep of fresh correlations from a reset; then the kernel's
+   max-only entry (the random-phase correction's noise map) the same way
+   at tm1024-rpc's (512, 1024, 1024), its launches counted, beside its
+   bound (cc, inv and the noise map read once) and its two torch kernels;
 4f. matcher_launches -- ``TemplateMatcher.match`` at tm512's shapes (a
    (256, 512, 512) tomogram, a 48^3 template): one call of 16
    orientations from a reset, the launch counters set to 0 just before,
@@ -110,13 +113,23 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    against those of the same call with the spectral pass's plain version
    on the card (``max_rel_err`` of the scores over their largest, at most
    1e-4, and the indices that differ), the kernel's launches counted;
+   then ``TemplateMatcher(..., random_phase_correction=True)`` at tm512's
+   shapes under both masks and at tm1024-rpc's (a (512, 1024, 1024)
+   tomogram, a 96^3 template): one call of 16 orientations, counters set
+   to 0 before it: the max-only entry and the update once an orientation,
+   the spectral pass twice (three times under the ellipsoid), the
+   rotations on A or B and no other kernel; each orientation a call, its
+   noise map bit for bit the plain update's on the matcher's own noise
+   correlation; the call's maps bit for bit those of the same call with
+   the entry's plain version;
 4g. parity_match_zpass, match_zpass_times -- the spectral pass along z
    (``csrc/match_zpass.cu``) against its plain version at tm512's shapes
    (48 planes, (256, 512, 257) spectra laid out as the matcher keeps
    them) and at a depth of 180: complex64 with one spectrum, complex128
    with two, the largest difference over the largest |plain|; then its
    device time alone beside its bound (the planes and spectra read once,
-   the results written once) and the plain version's;
+   the results written once) and the plain version's; the same at
+   tm1024-rpc's (512, 1024, 1024) with a 96^3 box;
 5. main   -- the main path at 250^3 float32, through the public API:
    ``StaticVolume`` 'linear' and 'filt_bspline' on 'cuda', ``.affine`` over
    16 random rotations and ``.affine_batch`` of the same 16, and the
@@ -351,6 +364,11 @@ MATCH_SEMI_AXES = (20.0, 12.0, 9.0)    # tm512-nsmask's ellipsoid
 MATCH_CALL = 16
 # phases 4f and 4g: a tomogram depth that is not a power of two
 MATCH_ODD_DEPTH = 180
+# phases 4e-4g: tm1024-rpc's bin-4 tomogram, its template box and its
+# mask's radius, the random-phase correction's scale
+RPC_SHAPE = (512, 1024, 1024)
+RPC_BOX = 96
+RPC_MASK_RADIUS = 40.0
 # phase 4b: a row-gather matrix whose rows coordinate is scaled this much
 # spans more rows than the first tile's window can hold
 LARGE_SPAN_SCALE = 30.0
@@ -1095,6 +1113,99 @@ def match_update_phase(torch, np, dev):
     return times
 
 
+def match_noise_update_phase(torch, np, dev):
+    """Phase 4e, the update kernel's max-only entry: against its plain
+    version at tm1024-rpc's (512, 1024, 1024), bit for bit, over a run of
+    orientations from a reset (``inv`` 0 at a tenth of the voxels, one
+    correlation repeated, one with NaN), its launches counted and the
+    improved-voxel count left as it was; then its device time beside its
+    bound and the plain version's.  Returns the numbers for the kernels'
+    line."""
+    from voltools_tpu_torch.kernels import match_update as MU
+    shape = RPC_SHAPE
+    n = int(np.prod(shape))
+    gen = torch.Generator(device=dev).manual_seed(25)
+    none = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def fresh():
+        return torch.full(shape, -float("inf"), device=dev)
+
+    inv = torch.rand(shape, generator=gen, device=dev).add_(0.5)
+    inv.masked_fill_(torch.rand(shape, generator=gen, device=dev) < 0.1, 0.0)
+    kernel, plain = fresh(), fresh()
+    cc, kept = torch.empty(shape, device=dev), None
+    names = (MU.NOISE_NAME, MU.NAME)
+    launches = launches_of(*names)
+    improved = MU.improved_voxels(dev)
+    worst = [0.0, 0]
+    for k in range(MATCH_RUN):
+        if k == 3:
+            cc.copy_(kept)                  # ties
+        else:
+            torch.randn(shape, generator=gen, out=cc)
+        if k == 1:
+            kept = cc.clone()
+        if k == 5:
+            cc.masked_fill_(torch.rand(shape, generator=gen, device=dev)
+                            < 0.01, float("nan"))
+        MU.plain_match_noise_update(cc, inv, plain)
+        MU.match_noise_update(cc, inv, kernel)
+        torch.cuda.synchronize()
+        diff = score_diff(torch, (kernel, none), (plain, none))
+        worst = [max(w, d) for w, d in zip(worst, diff[:2])]
+        assert diff == (0.0, 0, 0), ("match_noise_update", k, diff)
+    assert since(launches, *names) == (MATCH_RUN, 0)
+    assert MU.improved_voxels(dev) == improved
+    nan = int(torch.isnan(kernel).sum())
+    emit("parity_match_noise_update", shape=list(shape),
+         orientations=MATCH_RUN, nan_scores=nan, max_abs_err=worst[0],
+         max_bit_diff=worst[1],
+         method="the max-only entry against plain_match_noise_update on "
+         "the card after each orientation (score_diff of the noise maps, "
+         "the largest over the run); its launches counted, the update's "
+         "and its improved-voxel count unchanged")
+    del kept, plain
+
+    # the times: every voxel written (after a reset), then a sweep of
+    # fresh correlations from a reset, each launch timed alone
+    firsts = []
+    for _ in range(5):
+        kernel.fill_(-float("inf"))
+        firsts.append(event_ms(
+            torch, lambda: MU.match_noise_update(cc, inv, kernel))[0])
+    kernel.fill_(-float("inf"))
+    sweep = []
+    for _ in range(MATCH_SWEEP):
+        torch.randn(shape, generator=gen, out=cc)
+        sweep.append(event_ms(
+            torch, lambda: MU.match_noise_update(cc, inv, kernel))[0])
+    plain = fresh()
+    plain_ms = time_ms(torch, lambda: MU.plain_match_noise_update(
+        cc, inv, plain), reps=5)
+    late = MATCH_SWEEP // 4
+    times = {
+        "shape": list(shape),
+        "first_ms": sum(firsts) / len(firsts),
+        "sweep_mean_ms": sum(sweep) / len(sweep),
+        "late_ms": sum(sweep[-late:]) / late,
+        "plain_ms": plain_ms,
+        "max_abs_err": worst[0], "max_bit_diff": worst[1],
+        "bound_ms": 12.0 * n / HBM_BYTES_PER_S * 1e3,
+        "bound_all_written_ms": 16.0 * n / HBM_BYTES_PER_S * 1e3,
+    }
+    emit("match_noise_update_times", **times,
+         method="CUDA events around each launch; first_ms: a launch on a "
+         "map reset() leaves, every voxel written (5 runs); sweep: "
+         f"{MATCH_SWEEP} orientations of fresh N(0, 1) correlations from "
+         "a reset, late_ms the mean of the last quarter; plain_ms the two "
+         "torch kernels; bound_ms cc, inv and the noise map read once (12 "
+         "bytes a voxel), bound_all_written_ms with the map written at "
+         "every voxel (16 bytes)")
+    del cc, inv, kernel, plain
+    torch.cuda.empty_cache()
+    return times
+
+
 def matcher_phase(torch, np, dev, zero_launches, launch_counts):
     """Phase 4f: ``TemplateMatcher.match`` at tm512's shapes -- a (256,
     512, 512) tomogram, a 48^3 template under a spherical mask -- in one
@@ -1211,11 +1322,148 @@ def matcher_phase(torch, np, dev, zero_launches, launch_counts):
          "max_rel_err the largest |difference| of the scores over their "
          "largest |score|, indices_differ the indices that differ (near "
          "ties of two orientations), launches the kernel's in the call")
+    assert counts[MU.NOISE_NAME] == ns_counts[MU.NOISE_NAME] == 0
     return {"launches": counts[MU.NAME], "max_abs_err": worst[0],
+            "noise_launches": counts[MU.NOISE_NAME],
             "max_bit_diff": worst[1], "index_mismatch": worst[2],
             "zpass_launches": {"match": counts[ZP.NAME],
                                "match_nsmask": ns_counts[ZP.NAME]},
             "kernel_against_plain": paths}
+
+
+def matcher_rpc_phase(torch, np, dev, zero_launches, launch_counts):
+    """Phase 4f under the random-phase correction: ``TemplateMatcher(...,
+    random_phase_correction=True)`` at tm512's shapes under a spherical and
+    an ellipsoidal mask, and at tm1024-rpc's (a (512, 1024, 1024)
+    tomogram, a 96^3 template, a sphere of radius 40).  One call of
+    MATCH_CALL orientations from a reset, the counters set to 0 just
+    before it: the max-only entry and the update once an orientation, the
+    spectral pass twice (three times under the ellipsoid), the template's
+    and the noise template's rotations (and the mask's) on A or B, no other
+    kernel.  Then each orientation a call, the noise map held bit for bit
+    to the plain version's update on the matcher's own noise correlation
+    (computed again from the noise template it placed last) and
+    ``1/sigma``.  Then the call's maps (scores, indices, noise, the
+    corrected map) against those of the same call on the same matcher with
+    the entry's plain version, bit for bit.  Returns the launches and the
+    largest differences."""
+    from voltools_tpu_torch.kernels import affine_resample as K
+    from voltools_tpu_torch.kernels import affine_slab as S
+    from voltools_tpu_torch.kernels import match_update as MU
+    from voltools_tpu_torch.kernels import match_zpass as ZP
+    from voltools_tpu_torch.models import matching
+    from voltools_tpu_torch.utils import transform_matrix
+    gen = torch.Generator(device=dev).manual_seed(26)
+    rng = np.random.default_rng(26)
+
+    def masks(box, radius):
+        g = torch.arange(box, dtype=torch.float32, device=dev) - box // 2
+        axes = (g.view(-1, 1, 1), g.view(1, -1, 1), g.view(1, 1, -1))
+        sphere = (sum(a.square() for a in axes).sqrt_() <= radius).float()
+        ellipsoid = (sum((a / s).square() for a, s in zip(
+            axes, MATCH_SEMI_AXES)) <= 1.0).float()
+        return sphere, ellipsoid
+
+    sphere, ellipsoid = masks(MATCH_BOX, MATCH_MASK_RADIUS)
+    cases = [("spherical", TOMO_SHAPE, MATCH_BOX, sphere),
+             ("ellipsoid", TOMO_SHAPE, MATCH_BOX, ellipsoid),
+             ("spherical bin 4", RPC_SHAPE, RPC_BOX,
+              masks(RPC_BOX, RPC_MASK_RADIUS)[0])]
+    others = (MU.NAME, MU.NOISE_NAME, ZP.NAME, K.NAME, S.NAME)
+    rows = {}
+    worst = [0.0, 0, 0]
+    for name, shape, box, mask in cases:
+        tomogram = torch.randn(shape, generator=gen, device=dev)
+        template = torch.randn((box,) * 3, generator=gen, device=dev)
+        ms = np.stack([transform_matrix(
+            rotation=tuple(rng.uniform(-180, 180, 3)),
+            rotation_order="rzxz", center=(box // 2,) * 3)
+            for _ in range(MATCH_CALL)]).astype(np.float32)
+        matcher = matching.TemplateMatcher(tomogram, template, mask,
+                                           device=str(dev),
+                                           random_phase_correction=True)
+        del tomogram
+        spherical = matcher.spherical
+        assert spherical == (mask is not ellipsoid), name
+
+        def call():
+            matcher.reset()
+            torch.cuda.synchronize()
+            zero_launches()
+            matcher.match(ms)
+            torch.cuda.synchronize()
+            return launch_counts()
+
+        matcher.match(ms[:1])           # builds the kernels, plans FFTs
+        counts = call()
+        rotations = (2 if spherical else 3) * MATCH_CALL
+        assert counts[MU.NOISE_NAME] == MATCH_CALL, (name, counts)
+        assert counts[MU.NAME] == MATCH_CALL, (name, counts)
+        # the sigma's two products take one launch
+        assert counts[ZP.NAME] == (2 if spherical else 3) * MATCH_CALL, \
+            (name, counts)
+        assert counts[K.NAME] + counts[S.NAME] == rotations, (name, counts)
+        assert all(v == 0 for k, v in counts.items() if k not in others), \
+            (name, counts)
+        kernel = (matcher.scores.clone(), matcher.indices.clone(),
+                  matcher.noise.clone(), matcher.result("device")[0])
+        assert not bool(torch.isnan(kernel[3]).any()), name
+        # each orientation a call: the noise map against the plain update
+        # of the map before it
+        matcher.reset()
+        for k, m in enumerate(ms):
+            plain = matcher.noise.clone()
+            matcher.match(m)
+            inv = matcher._inv
+            if not spherical:
+                rotated = matcher._mask_sv.affine(m,
+                                                  output=matcher._mask_box)
+                inv = matcher._local_inv(rotated, rotated.sum())
+            MU.plain_match_noise_update(matcher._correlation(), inv, plain)
+            diff = score_diff(torch, (matcher.noise, matcher.indices),
+                              (plain, matcher.indices))
+            worst = [max(w, d) for w, d in zip(worst, diff)]
+            assert diff == (0.0, 0, 0), (name, k, diff)
+            del plain, inv
+        # the same call with the entry's plain version
+        entry = matching.match_noise_update
+        matching.match_noise_update = MU.plain_match_noise_update
+        try:
+            moved = call()
+        finally:
+            matching.match_noise_update = entry
+        assert moved[MU.NOISE_NAME] == 0, (name, moved)
+        plain = (matcher.scores, matcher.indices, matcher.noise,
+                 matcher.result("device")[0])
+        against = {
+            "maps": score_diff(torch, kernel[:2], plain[:2]),
+            "noise": score_diff(torch, (kernel[2], kernel[1]),
+                                (plain[2], kernel[1]))[:2],
+            "corrected": score_diff(torch, (kernel[3], kernel[1]),
+                                    (plain[3], kernel[1]))[:2]}
+        assert all(not any(d) for d in against.values()), (name, against)
+        unscored = int((kernel[1] < 0).sum())
+        rows[name] = {"shape": list(shape), "box": box,
+                      "launches": {k: counts[k] for k in others},
+                      "kernel_against_plain": against,
+                      "unscored_voxels": unscored}
+        del matcher, kernel, plain
+        torch.cuda.empty_cache()
+    emit("matcher_rpc_launches", orientations=MATCH_CALL, cases=rows,
+         max_abs_err=worst[0], max_bit_diff=worst[1],
+         method="TemplateMatcher(random_phase_correction=True): one match "
+         "call of the orientations from a reset, the counters set to 0 "
+         "just before it (launches; A and B are the template's, the noise "
+         "template's and, under the ellipsoid, the mask's rotations); then "
+         "each orientation in a call of its own, the noise map after it "
+         "against plain_match_noise_update of the map before it on the "
+         "matcher's own noise correlation and 1/sigma (score_diff, the "
+         "largest over the cases); kernel_against_plain: the call's maps "
+         "against those of the same call on the same matcher with the "
+         "entry's plain version (score_diff: 0 is bit for bit)")
+    return {"launches": rows["spherical"]["launches"][MU.NOISE_NAME],
+            "max_abs_err": worst[0], "max_bit_diff": worst[1],
+            "cases": rows}
 
 
 def match_zpass_phase(torch, np, dev):
@@ -1226,10 +1474,9 @@ def match_zpass_phase(torch, np, dev):
     kernels' line."""
     from voltools_tpu_torch.kernels import match_zpass as ZP
     from voltools_tpu_torch.models.matching import _spectral_layout
-    box = MATCH_BOX
     gen = torch.Generator(device=dev).manual_seed(24)
 
-    def at_depth(shape):
+    def at_depth(shape, box=MATCH_BOX):
         half = shape[2] // 2 + 1
         out = {"shape": list(shape), "box": box}
         for dtype in (torch.complex64, torch.complex128):
@@ -1271,14 +1518,18 @@ def match_zpass_phase(torch, np, dev):
     out = at_depth(TOMO_SHAPE)
     odd = (MATCH_ODD_DEPTH,) + TOMO_SHAPE[1:]
     out[f"depth {MATCH_ODD_DEPTH}"] = at_depth(odd)
-    emit("parity_match_zpass", shape=out["shape"], box=box,
-         max_rel_err={f"{k} depth {d['shape'][0]}": d[k]["max_rel_err"]
-                      for d in (out, out[f"depth {MATCH_ODD_DEPTH}"])
+    out["bin 4"] = at_depth(RPC_SHAPE, RPC_BOX)
+    emit("parity_match_zpass", shape=out["shape"], box=MATCH_BOX,
+         max_rel_err={f"{k} depth {d['shape'][0]} width {d['shape'][2]} "
+                      f"box {d['box']}": d[k]["max_rel_err"]
+                      for d in (out, out[f"depth {MATCH_ODD_DEPTH}"],
+                                out["bin 4"])
                       for k in ("complex64", "complex128")},
          method="the kernel against plain_match_zpass on the card: the "
          "largest |difference| over the largest |plain| of each result, at "
-         "tm512's depth (the register design) and at a depth that is not "
-         "a power of two (the shared-memory design)")
+         "tm512's depth (the register design), at a depth that is not a "
+         "power of two (the shared-memory design) and at tm1024-rpc's "
+         "shape and box (the register design at depth 512, width 1024)")
     emit("match_zpass_times", **out,
          method="CUDA events around 20 back-to-back launches (the plain "
          "version 5), warm; bound_ms the planes and the spectra read once "
@@ -1391,7 +1642,7 @@ def main():
         """The planner's kernel for each resampling launch, given as
         (matrices, shape, order), and C's ``back_projections``."""
         counts = {S.NAME: 0, K.NAME: 0, BP.NAME: back_projections, D1: 0,
-                  D2: 0, MU.NAME: 0, ZP.NAME: 0}
+                  D2: 0, MU.NAME: 0, MU.NOISE_NAME: 0, ZP.NAME: 0}
         for ms, shape, order in launches:
             counts[S.NAME if routed(ms, shape, order) is not None
                    else K.NAME] += 1
@@ -1657,8 +1908,11 @@ def main():
 
     # ------------- 4e. template matching's update vs its plain version
     match_times = match_update_phase(torch, np, dev)
+    noise_times = match_noise_update_phase(torch, np, dev)
     # ------------------ 4f. TemplateMatcher.match: the update's launches
     match_path = matcher_phase(torch, np, dev, zero_launches, launch_counts)
+    rpc_path = matcher_rpc_phase(torch, np, dev, zero_launches,
+                                 launch_counts)
     # ------------ 4g. the spectral pass along z vs its plain version
     zpass_times = match_zpass_phase(torch, np, dev)
 
@@ -2705,7 +2959,8 @@ def main():
         return body, routes
 
     def counted(routes):
-        n = {S.NAME: 0, K.NAME: 0, MU.NAME: 0, ZP.NAME: 0}
+        n = {S.NAME: 0, K.NAME: 0, MU.NAME: 0, MU.NOISE_NAME: 0,
+             ZP.NAME: 0}
         for r in routes:
             n[S.NAME if r.plan is not None else K.NAME] += 1
         return n
@@ -2910,7 +3165,8 @@ def main():
     recon_rows["sirt"] = err
     del res, got, sirt_one
     assert all(v > 0 for k, v in shard_launches.items()
-               if k not in (MU.NAME, ZP.NAME)), shard_launches
+               if k not in (MU.NAME, MU.NOISE_NAME, ZP.NAME)), \
+        shard_launches
     assert S.overflows(dev) == 0
     check_seconds = time.perf_counter() - t0
 
@@ -3543,6 +3799,7 @@ def main():
                 "sharded": shard_launches[name],
                 "examples": example_launches[name]}
     assert main_tilt[MU.NAME] == 0, main_tilt
+    assert main_tilt[MU.NOISE_NAME] == 0, main_tilt
     assert main_tilt[ZP.NAME] == 0, main_tilt
     kernels += [{
         "name": D1, "route": "cuda", "source": PS.SOURCE,
@@ -3649,6 +3906,9 @@ def main():
         "complex128": zpass_times["complex128"],
         "kernel_against_plain": match_path["kernel_against_plain"],
         "depth_180": zpass_times[f"depth {MATCH_ODD_DEPTH}"],
+        "bin_4": zpass_times["bin 4"],
+        "launches_random_phase": {
+            k: v["launches"][ZP.NAME] for k, v in rpc_path["cases"].items()},
         "shape": zpass_times["shape"],
         "matrices": "none: 48 random planes and random spectra at tm512's "
         "shapes, ms a launch (complex64, one spectrum; complex128 the "
@@ -3657,6 +3917,34 @@ def main():
         "ellipsoidal one (match_nsmask), phase 4f",
         "tolerance": "10 units of the last place times log2 N of the "
         "largest |plain|: two FFTs' rounding",
+    }, {
+        "name": MU.NOISE_NAME, "route": "cuda", "source": MU.SOURCE,
+        "replaces": "no TPU kernel (the JAX package has no template "
+        "matching): the random-phase correction's running maximum of the "
+        "noise template's scores, torch's mul and maximum",
+        "launches": rpc_path["launches"],
+        "launches_by_path": dict(
+            by_path(MU.NOISE_NAME), match=match_path["noise_launches"],
+            **{f"match_random_phase {k}": v["launches"][MU.NOISE_NAME]
+               for k, v in rpc_path["cases"].items()}),
+        "max_abs_err": max(noise_times["max_abs_err"],
+                           rpc_path["max_abs_err"]),
+        "max_bit_diff": max(noise_times["max_bit_diff"],
+                            rpc_path["max_bit_diff"]),
+        "kernel_against_plain": {k: v["kernel_against_plain"]
+                                 for k, v in rpc_path["cases"].items()},
+        "ms": noise_times["late_ms"], "first_ms": noise_times["first_ms"],
+        "plain_ms": noise_times["plain_ms"],
+        "bound_ms": noise_times["bound_ms"], "bound_by": "bytes",
+        "bound_all_written_ms": noise_times["bound_all_written_ms"],
+        "library_ms": None, "shape": noise_times["shape"],
+        "matrices": "none: a sweep of fresh correlations from a reset, ms "
+        "the last quarter's mean a launch; launches those of one "
+        f"TemplateMatcher.match call of {MATCH_CALL} orientations with "
+        "random_phase_correction at tm512's shapes under a spherical mask "
+        "(phase 4f); the errors the largest of phases 4e and 4f "
+        "(score_diff)",
+        "tolerance": "bit for bit (the scores' bit patterns)",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -43,6 +43,9 @@ LAUNCHERS = {
     "MU": (match_update, "_LAUNCH",
            "match_update launch failed: fake failure (7)",
            ("match_update",), True),
+    "MU noise": (match_update, "_NOISE_LAUNCH",
+                 "match_noise_update launch failed: fake failure (7)",
+                 ("match_noise_update",), True),
     "SZ": (match_zpass, "_LAUNCH",
            "match_zpass launch failed: fake failure (7)",
            ("match_zpass",), True),
@@ -63,7 +66,8 @@ LAUNCH_KEYS = {"launches.affine_resample", "launches.affine_slab",
                "launches.affine_slab.rows", "launches.backproject",
                "launches.partial_sample", "launches.partial_sample_ring",
                "launches.partial_project", "launches.partial_project.line",
-               "launches.match_update", "launches.match_zpass"}
+               "launches.match_update", "launches.match_noise_update",
+               "launches.match_zpass"}
 DEVICE_COUNTERS = {"fast_path_voxels", "overflows", "window_misses",
                    "improved_voxels"}
 

@@ -41,6 +41,15 @@
 // lane 0 adds the sum with one atomic, only where the warp improved any.
 // One launch an orientation, on the caller's stream; the kernel allocates
 // nothing and does not synchronise.
+//
+// The max-only entry, match_noise_update_launch: the running best of the
+// noise template's scores under pytom-match-pick's random-phase
+// correction, with no index and no count:
+//   noise = torch.maximum(noise, cc * inv)
+// the same pass with the index writes and the counter compiled out
+// (kIndexed false): it reads cc, inv and the noise map once and writes a
+// noise score only where its bits change, bit for bit the plain version
+// (voltools_tpu_torch/kernels/match_update.py::plain_match_noise_update).
 
 #include <cuda_runtime.h>
 
@@ -69,6 +78,9 @@ __device__ __forceinline__ Voxel voxel(float c, float v, float best) {
   return {m, __float_as_uint(m) != __float_as_uint(best), s > best};
 }
 
+// kIndexed: the index map and the improved-voxel count are kept (the
+// template's update); without it only the scores (the noise map's).
+template <bool kIndexed>
 __global__ void __launch_bounds__(kThreads)
     match_update_kernel(const float* __restrict__ cc,
                         const float* __restrict__ inv,
@@ -110,31 +122,58 @@ __global__ void __launch_bounds__(kThreads)
         if (z.store) s[2] = z.score;
         if (w.store) s[3] = w.score;
       }
-      if (x.better && y.better && z.better && w.better) {
-        indices4[g] = make_int4(index, index, index, index);
-      } else {
-        int* i = indices + 4 * g;
-        if (x.better) i[0] = index;
-        if (y.better) i[1] = index;
-        if (z.better) i[2] = index;
-        if (w.better) i[3] = index;
+      if constexpr (kIndexed) {
+        if (x.better && y.better && z.better && w.better) {
+          indices4[g] = make_int4(index, index, index, index);
+        } else {
+          int* i = indices + 4 * g;
+          if (x.better) i[0] = index;
+          if (y.better) i[1] = index;
+          if (z.better) i[2] = index;
+          if (w.better) i[3] = index;
+        }
+        count += x.better + y.better + z.better + w.better;
       }
-      count += x.better + y.better + z.better + w.better;
     }
   }
   if (blockIdx.x == 0 && threadIdx.x < (n & 3)) {
     const long long t = 4 * groups + threadIdx.x;
     const Voxel x = voxel(__ldcs(cc + t), __ldg(inv + t), scores[t]);
     if (x.store) scores[t] = x.score;
-    if (x.better) indices[t] = index;
-    count += x.better;
+    if constexpr (kIndexed) {
+      if (x.better) indices[t] = index;
+      count += x.better;
+    }
   }
-  // every lane of every warp reaches here: the CTA holds whole warps and
-  // no thread leaves early
-  count = __reduce_add_sync(kWarpMask, count);
-  if ((threadIdx.x & 31) == 0 && count != 0) {
-    atomicAdd(improved, static_cast<unsigned long long>(count));
+  if constexpr (kIndexed) {
+    // every lane of every warp reaches here: the CTA holds whole warps and
+    // no thread leaves early
+    count = __reduce_add_sync(kWarpMask, count);
+    if ((threadIdx.x & 31) == 0 && count != 0) {
+      atomicAdd(improved, static_cast<unsigned long long>(count));
+    }
   }
+}
+
+bool misaligned(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+}
+
+// The launch of either form over n voxels; a cudaError_t.
+template <bool kIndexed>
+int launch(const float* cc, const float* inv, float* scores, int* indices,
+           long long n, int index, unsigned long long* improved,
+           void* stream) {
+  const long long per_block = static_cast<long long>(kThreads) * kGroups;
+  const long long blocks = ((n >> 2) + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  match_update_kernel<kIndexed>
+      <<<blocks > 0 ? static_cast<unsigned>(blocks) : 1u, kThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(cc, inv, scores, indices, n,
+                                              index, improved);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -147,22 +186,23 @@ extern "C" int match_update_launch(const float* cc, const float* inv,
                                    float* scores, int* indices, long long n,
                                    int index, unsigned long long* improved,
                                    void* stream) {
-  const auto misaligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 != 0;
-  };
   if (n < 1 || improved == nullptr || misaligned(cc) || misaligned(inv) ||
       misaligned(scores) || misaligned(indices)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long per_block = static_cast<long long>(kThreads) * kGroups;
-  const long long blocks = ((n >> 2) + per_block - 1) / per_block;
-  if (blocks > 0x7fffffffLL) {
+  return launch<true>(cc, inv, scores, indices, n, index, improved, stream);
+}
+
+// Keep in ``noise`` (n voxels) the larger of it and ``cc * inv``, as
+// torch.maximum(noise, cc * inv) does.  Every pointer 16-byte aligned.
+// Returns a cudaError_t.
+extern "C" int match_noise_update_launch(const float* cc, const float* inv,
+                                         float* noise, long long n,
+                                         void* stream) {
+  if (n < 1 || misaligned(cc) || misaligned(inv) || misaligned(noise)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  match_update_kernel<<<blocks > 0 ? static_cast<unsigned>(blocks) : 1u,
-                        kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      cc, inv, scores, indices, n, index, improved);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(cc, inv, noise, nullptr, n, 0, nullptr, stream);
 }
 
 extern "C" const char* match_update_error_string(int code) {

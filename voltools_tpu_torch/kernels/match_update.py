@@ -18,6 +18,13 @@ and an index only where the orientation changes them; it equals the plain
 version bit for bit, NaN, infinities and the sign of a zero included (the
 source's note says how).  It counts on the device the voxels whose best it
 replaced (``s > scores``): :func:`improved_voxels` reads the count.
+
+:func:`match_noise_update` is the same pass without the index and the
+count, the library's second entry: the running best of the noise
+template's scores under the random-phase correction, ``noise =
+torch.maximum(noise, cc * inv)``, which its plain version
+:func:`plain_match_noise_update` computes in two torch kernels that read
+and write the map twice.  It writes a score only where its bits change.
 """
 
 from __future__ import annotations
@@ -40,9 +47,19 @@ ARGTYPES = [
     ctypes.c_void_p,                           # stream
 ]
 
-LIBRARY = _build.Library(NAME, {"match_update_launch": ARGTYPES},
+# match_noise_update_launch's parameters
+NOISE_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p,          # cc, inv
+    ctypes.c_void_p, ctypes.c_longlong,        # noise, voxels
+    ctypes.c_void_p,                           # stream
+]
+NOISE_NAME = "match_noise_update"
+
+LIBRARY = _build.Library(NAME, {"match_update_launch": ARGTYPES,
+                                "match_noise_update_launch": NOISE_ARGTYPES},
                          counters={"improved_voxels": (torch.int64, 1)})
 _LAUNCH = LIBRARY.launcher("match_update_launch", NAME)
+_NOISE_LAUNCH = LIBRARY.launcher("match_noise_update_launch", NOISE_NAME)
 
 
 def plain_match_update(cc: torch.Tensor, inv: torch.Tensor,
@@ -58,14 +75,23 @@ def plain_match_update(cc: torch.Tensor, inv: torch.Tensor,
     indices.masked_fill_(better, index)
 
 
+def plain_match_noise_update(cc: torch.Tensor, inv: torch.Tensor,
+                             noise: torch.Tensor) -> None:
+    """The max-only entry's plain version: the scaled correlation and the
+    maximum, ``noise`` updated in place; ``cc`` is left as it is."""
+    torch.maximum(noise, cc * inv, out=noise)
+
+
 def improved_voxels(device="cuda") -> int:
     """How many voxels the kernel's launches on ``device`` gave a new best
     (``s > scores``) in this process.  Reading it waits for the device."""
     return LIBRARY.read("improved_voxels", device)
 
 
-def _check(cc, inv, scores, indices, index) -> None:
-    maps = {"cc": cc, "inv": inv, "scores": scores, "indices": indices}
+def _check(cc, inv, scores, indices=None, index=0) -> None:
+    maps = {"cc": cc, "inv": inv, "scores": scores}
+    if indices is not None:
+        maps["indices"] = indices
     for name, t in maps.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch tensor")
@@ -106,3 +132,20 @@ def match_update(cc: torch.Tensor, inv: torch.Tensor, scores: torch.Tensor,
             cc.data_ptr(), inv.data_ptr(), scores.data_ptr(),
             indices.data_ptr(), cc.numel(), index,
             LIBRARY.counter("improved_voxels", cc.device).data_ptr())
+
+
+def match_noise_update(cc: torch.Tensor, inv: torch.Tensor,
+                       noise: torch.Tensor) -> None:
+    """Keep in ``noise`` (float32) the larger of it and ``cc * inv`` (both
+    float32), in place; all three contiguous, of one shape, on one
+    device.  ``_build.launches()["match_noise_update"]`` counts the
+    kernel launches (the CPU path launches nothing); each CUDA call
+    launches once."""
+    _check(cc, inv, noise)
+    if cc.device.type == "cpu":
+        plain_match_noise_update(cc, inv, noise)
+        return
+    if cc.device.type != "cuda":
+        raise ValueError(f"unsupported device {cc.device}")
+    _NOISE_LAUNCH(cc.device, cc.data_ptr(), inv.data_ptr(),
+                  noise.data_ptr(), cc.numel())

@@ -53,6 +53,27 @@ correlation and the update a fourth span computes ``sigma_local`` under
 That is five tomogram-sized transforms an orientation where a spherical
 mask takes two.
 
+With ``random_phase_correction`` (pytom-match-pick's
+``--random-phase-correction``, after STOPGAP's noise correlation; Wan et
+al., Acta Cryst. D 80, 2024), a noise template is made once, at
+construction (:func:`phase_randomize_template`: the template's ``rfftn``
+amplitudes kept, its phases permuted by ``numpy.random.default_rng(
+rng_seed)``), and each orientation scores it beside the template, in two
+more spans after ``match.update``:
+
+* ``match.noise``: the noise template through everything the template
+  goes through (its own ``StaticVolume``, the template's interpolation;
+  the same rotation, wedge, normalisation under the same mask, rotated or
+  not, placing, in the template's buffer of rows once its forward has read
+  them, and correlation), divided by the same ``n sigma``;
+* ``match.noise_update``: one launch of the update kernel's max-only
+  entry, ``noise = max(noise, cc_noise / (n sigma))``, a map with no index.
+
+:meth:`TemplateMatcher.result` then returns pytom's final map, the best
+scores less the noise map, with the indices unchanged;
+:meth:`TemplateMatcher.noise_result` returns the noise map.  That is two
+tomogram-sized transforms more an orientation.
+
 The forward transform skips the placed template's zeros: ``rfft`` along x
 on the template's ``bz * by`` rows; that copied into the y window of a
 zero buffer of the template's ``bz`` planes (its zeros written once, at
@@ -105,6 +126,12 @@ exact arithmetic:
   index at ``-1``; a template flat under the mask scores 0.
 * The whole tomogram is scored at once, without pytom's split into
   sub-volumes.
+* Under the random-phase correction, the noise template is made from the
+  template as given, in float64 and kept as float32, and prefiltered
+  once for its interpolation;
+  its index is the orientation's position, as the template's; and a
+  voxel no orientation has scored reads ``-inf`` in the corrected map and
+  ``-1`` in the index, not pytom's NaN of ``-inf - -inf``.
 """
 
 from __future__ import annotations
@@ -116,12 +143,12 @@ import numpy as np
 import torch
 
 from ..kernels import match_zpass as zpass
-from ..kernels.match_update import match_update
+from ..kernels.match_update import match_noise_update, match_update
 from ..transforms import _as_tensor, _device
 from ..utils import trace
 from ..volume import StaticVolume
 
-__all__ = ["TemplateMatcher", "missing_wedge"]
+__all__ = ["TemplateMatcher", "missing_wedge", "phase_randomize_template"]
 
 # a sigma at most this share of the largest scores 0
 SIGMA_FLOOR = 1e-6
@@ -172,6 +199,24 @@ def missing_wedge(box, tilt_range=(-60.0, 60.0), tilt_axis: int = 2,
     keep = (angle >= lo - WEDGE_TOLERANCE) & (angle <= hi + WEDGE_TOLERANCE)
     rshape = box[:2] + (box[2] // 2 + 1,)
     return keep.expand(rshape).to(torch.float32).to(device).contiguous()
+
+
+def phase_randomize_template(template, seed: int = 321) -> np.ndarray:
+    """pytom-match-pick's noise template, float64: the ``rfftn`` of
+    ``template`` (a 3-D array or tensor), its amplitudes kept and its
+    phases, flattened, permuted by ``numpy.random.default_rng(seed)``,
+    then ``irfftn`` back to the template's shape.  In numpy, as pytom
+    computes it: a frequency whose amplitude is at the transform's
+    rounding has that rounding's phase, which the permutation moves onto a
+    frequency that matters."""
+    if isinstance(template, torch.Tensor):
+        template = template.detach().cpu().numpy()
+    t = np.asarray(template, np.float64)
+    ft = np.fft.rfftn(t)
+    phase = np.random.default_rng(seed).permutation(
+        np.angle(ft).reshape(-1)).reshape(ft.shape)
+    return np.fft.irfftn(np.abs(ft) * np.exp(1j * phase), s=t.shape,
+                         axes=(0, 1, 2))
 
 
 def _is_spherical(mask: torch.Tensor, centre) -> bool:
@@ -310,13 +355,19 @@ class TemplateMatcher:
     ``match_zpass.MAX_POINTS``, the spectral kernel's longest column.
     ``tilt_range``, ``tilt_axis`` and ``projection_axis`` give the wedge
     (:func:`missing_wedge`); ``interpolation`` the template's rotation,
-    and the mask's."""
+    and the mask's.  ``random_phase_correction`` scores a noise template
+    made from ``rng_seed`` beside the template each orientation and
+    subtracts its running best from the result (pytom-match-pick's
+    ``--random-phase-correction`` and ``--rng-seed``; the module's
+    docstring)."""
 
     def __init__(self, tomogram, template, mask, *,
                  tilt_range=(-60.0, 60.0), tilt_axis: int = 2,
                  projection_axis: int = 0,
                  interpolation: str = "filt_bspline",
-                 device: Optional[str] = None):
+                 device: Optional[str] = None,
+                 random_phase_correction: bool = False,
+                 rng_seed: int = 321):
         if device is None:
             device = (str(tomogram.device) if isinstance(
                 tomogram, torch.Tensor) else "cuda")
@@ -368,6 +419,14 @@ class TemplateMatcher:
                               reflect=True)
         self._y_window = zpass.window(self.box[1], self.centre[1],
                                       self.shape[1], dev)
+        self.noise = None
+        if random_phase_correction:
+            noise = phase_randomize_template(tmpl, rng_seed)
+            self._noise_sv = StaticVolume(
+                torch.from_numpy(noise.astype(np.float32)).to(dev),
+                interpolation, device=device)
+            self.noise = torch.empty(self.shape, dtype=torch.float32,
+                                     device=dev)
         # the spectra in the layout the spectral pass reads
         self._spectrum = _spectral_layout(self.shape, torch.complex64,
                                           dev).copy_(spectrum)
@@ -388,9 +447,12 @@ class TemplateMatcher:
         self.reset()
 
     def reset(self) -> None:
-        """Clear the score and index maps and the orientation counter."""
+        """Clear the score, index and noise maps and the orientation
+        counter."""
         self.scores.fill_(-math.inf)
         self.indices.fill_(-1)
+        if self.noise is not None:
+            self.noise.fill_(-math.inf)
         self.orientations = 0
 
     def match(self, matrices) -> None:
@@ -408,30 +470,49 @@ class TemplateMatcher:
                 self.orientations += 1
 
     def _score(self, m: np.ndarray, index: int) -> None:
+        rotated = ()
         with trace.span("match.template", device=self._dev):
-            if self.spherical:
-                t = self._template(m)
-            else:
+            if not self.spherical:
                 mask = self._mask_sv.affine(m, output=self._mask_box)
-                n = mask.sum()
-                t = self._template(m, mask, n)
-            self._rows.view(-1).index_copy_(0, self._place, t.view(-1))
+                rotated = (mask, mask.sum())
+            self._place_template(m, rotated)
         with trace.span("match.correlate", device=self._dev):
-            cc = self._correlation()
-            trace.count("match.transforms", 2)
-            trace.count("match.pruned_rows", self.box[0] * self.box[1])
-            trace.count("match.zpass_products")
+            cc = self._counted_correlation()
         inv = self._inv
         if not self.spherical:
             with trace.span("match.sigma", device=self._dev):
-                inv = self._local_inv(mask, n)
+                inv = self._local_inv(*rotated)
                 trace.count("match.transforms", 3)
                 trace.count("match.pruned_rows", self.box[0] * self.box[1])
                 trace.count("match.local_sigma")
                 trace.count("match.zpass_products", 2)
         with trace.span("match.update", device=self._dev):
             match_update(cc, inv, self.scores, self.indices, index)
+        if self.noise is not None:
+            del cc
+            # the template's rows again: its forward has read them, in
+            # stream order, and the placing writes every placed position
+            with trace.span("match.noise", device=self._dev):
+                self._place_template(m, rotated, sv=self._noise_sv)
+                cc = self._counted_correlation()
+                trace.count("match.random_phase")
+            with trace.span("match.noise_update", device=self._dev):
+                match_noise_update(cc, inv, self.noise)
         trace.count("match.orientations")
+
+    def _place_template(self, m: np.ndarray, rotated=(), **sv) -> None:
+        """:meth:`_template` of ``m`` placed in the forward's rows: under
+        the ``rotated`` mask and its weight where given, of the volume
+        ``sv=`` where given."""
+        t = self._template(m, *rotated, **sv)
+        self._rows.view(-1).index_copy_(0, self._place, t.view(-1))
+
+    def _counted_correlation(self) -> torch.Tensor:
+        """:meth:`_correlation` of the placed template, counted."""
+        trace.count("match.transforms", 2)
+        trace.count("match.pruned_rows", self.box[0] * self.box[1])
+        trace.count("match.zpass_products")
+        return self._correlation()
 
     def _forward(self, buffers=None) -> torch.Tensor:
         """The template in the rows' buffer of ``buffers`` (default: the
@@ -477,13 +558,14 @@ class TemplateMatcher:
         return w.rsqrt_().masked_fill_(low, 0.0)
 
     def _template(self, m: np.ndarray, mask: Optional[torch.Tensor] = None,
-                  n=None) -> torch.Tensor:
-        """The template rotated by ``m``, through the wedge, normalised
-        under ``mask`` of weight ``n`` (the matcher's mask and its weight
-        by default) and multiplied by it."""
+                  n=None, sv: Optional[StaticVolume] = None) -> torch.Tensor:
+        """The template of ``sv`` (default: the matcher's) rotated by
+        ``m``, through the wedge, normalised under ``mask`` of weight ``n``
+        (the matcher's mask and its weight by default) and multiplied by
+        it."""
         if mask is None:
             mask, n = self._mask, self._n_mask
-        self.sv.affine(m, output=self._box)
+        (sv or self.sv).affine(m, output=self._box)
         ft = torch.fft.rfftn(self._box)
         ft.mul_(self.wedge)
         t = torch.fft.irfftn(ft, s=self.box)
@@ -495,12 +577,36 @@ class TemplateMatcher:
     def result(self, output: Optional[str] = None
                ) -> Tuple[object, object]:
         """(scores, indices): float32 best scores and the int32 index of the
-        orientation that gave each (-1 where none has scored).  ``output``
-        None: numpy arrays; ``'device'``: copies on the device, which later
-        calls of :meth:`match` leave as they are."""
+        orientation that gave each (-1 where none has scored); with the
+        random-phase correction the scores less the noise map (``-inf``
+        where none has scored).  ``output`` None: numpy arrays;
+        ``'device'``: copies on the device, which later calls of
+        :meth:`match` leave as they are."""
+        _check_output(output)
+        scores = self.scores
+        if self.noise is not None:
+            scores = torch.where(self.noise == -math.inf, scores,
+                                 scores - self.noise)
+        elif output == "device":
+            scores = scores.clone()
         if output == "device":
-            return self.scores.clone(), self.indices.clone()
-        if output is not None:
-            raise ValueError(f"output must be None or 'device', got "
-                             f"{output!r}")
-        return self.scores.cpu().numpy(), self.indices.cpu().numpy()
+            return scores, self.indices.clone()
+        return scores.cpu().numpy(), self.indices.cpu().numpy()
+
+    def noise_result(self, output: Optional[str] = None):
+        """The float32 noise map: the best score of the noise template at
+        each voxel (``-inf`` where none has scored), as :meth:`result`
+        gives its maps (``output`` None or ``'device'``).  Only with the
+        random-phase correction."""
+        _check_output(output)
+        if self.noise is None:
+            raise ValueError("the matcher runs without "
+                             "random_phase_correction: it has no noise map")
+        if output == "device":
+            return self.noise.clone()
+        return self.noise.cpu().numpy()
+
+
+def _check_output(output) -> None:
+    if output is not None and output != "device":
+        raise ValueError(f"output must be None or 'device', got {output!r}")
