@@ -21,6 +21,7 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    step, D2 the mesh SIRT's forward, on a line path for tilt series),
    ``csrc/match_update.cu`` (template matching's update),
    ``csrc/match_zpass.cu`` (template matching's spectral pass along z),
+   ``csrc/match_sigma.cu`` (the local sigma map under a rotated mask),
    ``tools/backproject_baseline.cu`` (C's row-gather path before its
    redesign, timed beside it in phase 7) and
    ``tools/partial_sample_baseline.cu`` (D before its redesign, timed
@@ -130,6 +131,21 @@ It imports torch, numpy, scipy and the port only (never JAX, never
    device time alone beside its bound (the planes and spectra read once,
    the results written once) and the plain version's; the same at
    tm1024-rpc's (512, 1024, 1024) with a 96^3 box;
+4h. parity_match_sigma, match_sigma_times -- the sigma kernel
+   (``csrc/match_sigma.cu``: the C2R along x of a rotated mask's two
+   moments, ``w`` and its float32 map and largest value in one launch, the
+   floor and ``rsqrt`` in place in a second) at tm512-nsmask's shapes: one
+   orientation's moments from a matcher under the ellipsoid into the
+   kernel and into its plain version, the largest difference over each
+   voxel's plain value and the voxels floored on one side only; one
+   ``TemplateMatcher.match`` call of 16 orientations from a reset, each
+   entry launched once an orientation, its maps against those of the same
+   call with the plain version; the kernel against its plain version at
+   widths of the shared-memory design (480, 255, 2042: Stockham passes
+   even and odd, Bluestein's); then the device times of each entry alone
+   beside its bound (the moments read once and the map written once; the
+   map read and written once), the plain version's, torch's inverse along
+   y and the whole tail before (torch's inverses and passes) and after;
 5. main   -- the main path at 250^3 float32, through the public API:
    ``StaticVolume`` 'linear' and 'filt_bspline' on 'cuda', ``.affine`` over
    16 random rotations and ``.affine_batch`` of the same 16, and the
@@ -1220,6 +1236,7 @@ def matcher_phase(torch, np, dev, zero_launches, launch_counts):
     held to those of the same call with the spectral pass's plain version,
     and its launches counted.  Returns the calls' launches and the largest
     differences."""
+    from voltools_tpu_torch.kernels import match_sigma as MS
     from voltools_tpu_torch.kernels import match_update as MU
     from voltools_tpu_torch.kernels import match_zpass as ZP
     from voltools_tpu_torch.models.matching import TemplateMatcher
@@ -1323,11 +1340,20 @@ def matcher_phase(torch, np, dev, zero_launches, launch_counts):
          "largest |score|, indices_differ the indices that differ (near "
          "ties of two orientations), launches the kernel's in the call")
     assert counts[MU.NOISE_NAME] == ns_counts[MU.NOISE_NAME] == 0
+    # the sigma kernel: none under a sphere, each entry an orientation
+    # under the ellipsoid
+    assert counts[MS.NAME] == counts[MS.FINISH_NAME] == 0, counts
+    assert ns_counts[MS.NAME] == ns_counts[MS.FINISH_NAME] == MATCH_CALL, \
+        ns_counts
     return {"launches": counts[MU.NAME], "max_abs_err": worst[0],
             "noise_launches": counts[MU.NOISE_NAME],
             "max_bit_diff": worst[1], "index_mismatch": worst[2],
             "zpass_launches": {"match": counts[ZP.NAME],
                                "match_nsmask": ns_counts[ZP.NAME]},
+            "sigma_launches": {
+                "match": counts[MS.NAME] + counts[MS.FINISH_NAME],
+                "match_nsmask": {e: ns_counts[e] for e in (
+                    MS.NAME, MS.FINISH_NAME)}},
             "kernel_against_plain": paths}
 
 
@@ -1349,6 +1375,7 @@ def matcher_rpc_phase(torch, np, dev, zero_launches, launch_counts):
     largest differences."""
     from voltools_tpu_torch.kernels import affine_resample as K
     from voltools_tpu_torch.kernels import affine_slab as S
+    from voltools_tpu_torch.kernels import match_sigma as MS
     from voltools_tpu_torch.kernels import match_update as MU
     from voltools_tpu_torch.kernels import match_zpass as ZP
     from voltools_tpu_torch.models import matching
@@ -1369,7 +1396,8 @@ def matcher_rpc_phase(torch, np, dev, zero_launches, launch_counts):
              ("ellipsoid", TOMO_SHAPE, MATCH_BOX, ellipsoid),
              ("spherical bin 4", RPC_SHAPE, RPC_BOX,
               masks(RPC_BOX, RPC_MASK_RADIUS)[0])]
-    others = (MU.NAME, MU.NOISE_NAME, ZP.NAME, K.NAME, S.NAME)
+    others = (MU.NAME, MU.NOISE_NAME, ZP.NAME, K.NAME, S.NAME, MS.NAME,
+              MS.FINISH_NAME)
     rows = {}
     worst = [0.0, 0, 0]
     for name, shape, box, mask in cases:
@@ -1403,6 +1431,10 @@ def matcher_rpc_phase(torch, np, dev, zero_launches, launch_counts):
         assert counts[ZP.NAME] == (2 if spherical else 3) * MATCH_CALL, \
             (name, counts)
         assert counts[K.NAME] + counts[S.NAME] == rotations, (name, counts)
+        # the sigma kernel's entries once an orientation under the ellipsoid
+        sigma = 0 if spherical else MATCH_CALL
+        assert counts[MS.NAME] == counts[MS.FINISH_NAME] == sigma, \
+            (name, counts)
         assert all(v == 0 for k, v in counts.items() if k not in others), \
             (name, counts)
         kernel = (matcher.scores.clone(), matcher.indices.clone(),
@@ -1537,6 +1569,179 @@ def match_zpass_phase(torch, np, dev):
     return out
 
 
+def match_sigma_phase(torch, np, dev, zero_launches, launch_counts):
+    """Phase 4h: the sigma kernel at tm512-nsmask's shapes -- a (256, 512,
+    512) tomogram, a 48^3 box under the ellipsoid.  One orientation's
+    moments (the spectral pass and torch's inverse along y, as
+    ``TemplateMatcher._moments`` takes them) into the kernel and into its
+    plain version: the largest |difference| over each voxel's plain value
+    where neither is floored, and the voxels floored on one side only.
+    Then one ``match`` call of MATCH_CALL orientations from a reset, the
+    counters set to 0 just before it (each entry once an orientation), its
+    maps against those of the same call with the plain version.  Then the
+    device times.  Returns the numbers for the kernels' line."""
+    from voltools_tpu_torch.kernels import match_sigma as MS
+    from voltools_tpu_torch.models import matching
+    from voltools_tpu_torch.models.matching import _irfft_yx
+    from voltools_tpu_torch.utils import transform_matrix
+    gen = torch.Generator(device=dev).manual_seed(28)
+    rng = np.random.default_rng(28)
+    box = MATCH_BOX
+    g = torch.arange(box, dtype=torch.float32, device=dev) - box // 2
+    axes = (g.view(-1, 1, 1), g.view(1, -1, 1), g.view(1, 1, -1))
+    ellipsoid = (sum((a / s).square() for a, s in zip(
+        axes, MATCH_SEMI_AXES)) <= 1.0).float()
+    template = torch.randn((box,) * 3, generator=gen, device=dev)
+    tomogram = torch.randn(TOMO_SHAPE, generator=gen, device=dev)
+    ms = np.stack([transform_matrix(
+        rotation=tuple(rng.uniform(-180, 180, 3)), rotation_order="rzxz",
+        center=(box // 2,) * 3) for _ in range(MATCH_CALL)]
+    ).astype(np.float32)
+    matcher = matching.TemplateMatcher(tomogram, template, ellipsoid,
+                                       device=str(dev))
+    del tomogram
+    width = TOMO_SHAPE[2]
+    assert MS.design(width) == "registers"
+    floor = matching.SIGMA_FLOOR ** 2
+    rotated = matcher._mask_sv.affine(ms[0], output=matcher._mask_box)
+    n = rotated.sum()
+    mean, mean_sq = matcher._moments(rotated)
+    got = MS.match_sigma(mean, mean_sq, n, width, floor)
+    want = MS.plain_match_sigma(mean, mean_sq, n, width, floor)
+    both = (got > 0) & (want > 0)
+    err = float(((got - want).abs() / want)[both].max())
+    one_side = int(((got == 0) != (want == 0)).sum())
+    floored = int((want == 0).sum())
+    del got, want, both
+    # w's float64 rounding and rsqrt's last place: a few units of the last
+    # place of each voxel's 1 / sqrt(w)
+    assert err <= 8 * 2.0 ** -24 and one_side == 0, (err, one_side)
+
+    def call(plain=False):
+        kernel = MS.match_sigma
+        if plain:
+            MS.match_sigma = MS.plain_match_sigma
+        try:
+            matcher.reset()
+            torch.cuda.synchronize()
+            zero_launches()
+            matcher.match(ms)
+            torch.cuda.synchronize()
+        finally:
+            MS.match_sigma = kernel
+        return launch_counts(), (matcher.scores.clone(),
+                                 matcher.indices.clone())
+
+    matcher.match(ms[:1])               # builds the kernels, plans FFTs
+    counts, (a, ia) = call()
+    assert counts[MS.NAME] == counts[MS.FINISH_NAME] == MATCH_CALL, counts
+    moved, (b, ib) = call(plain=True)
+    assert moved[MS.NAME] == moved[MS.FINISH_NAME] == 0, moved
+    maps = {"max_rel_err": float((a - b).abs().max() / b.abs().max()),
+            "indices_differ": int((ia != ib).sum())}
+    assert maps["max_rel_err"] <= 1e-4, maps
+    del a, b, ia, ib
+    # the device times, the moments of one orientation
+    out = torch.empty(TOMO_SHAPE, dtype=torch.float32, device=dev)
+    largest = torch.empty(1, dtype=torch.int32, device=dev)
+    sx_ms = time_ms(torch, lambda: MS._LAUNCH(
+        dev, mean.data_ptr(), mean_sq.data_ptr(), *mean.stride(),
+        *TOMO_SHAPE, n.data_ptr(), out.data_ptr(), largest.data_ptr(),
+        None), reps=20)
+    finish_ms = time_ms(torch, lambda: MS._FINISH(
+        dev, out.data_ptr(), out.numel(), largest.data_ptr(), floor),
+        reps=20)
+    plain_ms = time_ms(torch, lambda: MS.plain_match_sigma(
+        mean, mean_sq, n, width, floor), reps=5)
+    del mean, mean_sq, out
+    zpass_out = matcher._products(matcher._forward(matcher._wide),
+                                  matcher._spectrum_wide,
+                                  matcher._spectrum_sq_wide)
+
+    def y_pass():
+        return [torch.fft.ifft(t, dim=1, norm="forward") for t in zpass_out]
+
+    def former_tail():
+        # the matcher's tail before the kernel, as it queued it
+        m, w = (_irfft_yx(t, TOMO_SHAPE) for t in zpass_out)
+        w.mul_(math.prod(TOMO_SHAPE) * n.double()).addcmul_(
+            m, m, value=-1.0)
+        del m
+        w = w.to(torch.float32)
+        low = w <= floor * w.max().clamp_min(0.0)
+        return w.rsqrt_().masked_fill_(low, 0.0)
+
+    y_ms = time_ms(torch, y_pass, reps=5)
+    tail_ms = time_ms(torch, former_tail, reps=5)
+    new_tail_ms = time_ms(torch, lambda: MS.match_sigma(
+        *y_pass(), n, width, floor), reps=5)
+    del zpass_out, matcher
+    torch.cuda.empty_cache()
+    # the shared-memory design's widths (Stockham passes even and odd,
+    # Bluestein's): moments whose w is a random positive map, from their
+    # spectra along y and x
+    other = {}
+    for shape in ((64, 512, 480), (64, 512, 255), (32, 512, 2042)):
+        sg = torch.Generator(device=dev).manual_seed(shape[2])
+        weight = torch.tensor(137.25, dtype=torch.float32, device=dev)
+        s = math.prod(shape) * float(weight)
+        m = torch.randn(shape, dtype=torch.float64, generator=sg,
+                        device=dev) * (0.3 * s)
+        w = (torch.rand(shape, dtype=torch.float64, generator=sg,
+                        device=dev) * 1.5 + 0.5) * (s * s)
+        spectra = [torch.fft.ifft(matching._spectral_layout(
+            shape, torch.complex128, dev).copy_(torch.fft.rfftn(
+                r, dim=(1, 2), norm="forward")), dim=1, norm="forward")
+            for r in (m, (w + m * m) / s)]
+        del m, w
+        got = MS.match_sigma(*spectra, weight, shape[2], floor)
+        want = MS.plain_match_sigma(*spectra, weight, shape[2], floor)
+        other[f"{shape[2]} {MS.design(shape[2])}"] = float(
+            ((got - want).abs() / want).max())
+        del spectra, got, want
+        torch.cuda.empty_cache()
+    assert all(e <= 8 * 2.0 ** -24 for e in other.values()), other
+    half = TOMO_SHAPE[2] // 2 + 1
+    read = 2 * TOMO_SHAPE[0] * TOMO_SHAPE[1] * half * 16
+    written = math.prod(TOMO_SHAPE) * 4
+    times = {"shape": list(TOMO_SHAPE), "ms": sx_ms,
+             "bound_ms": (read + written) / HBM_BYTES_PER_S * 1e3,
+             "bytes": read + written,
+             "finish_ms": finish_ms,
+             "finish_bound_ms": 2 * written / HBM_BYTES_PER_S * 1e3,
+             "plain_ms": plain_ms, "y_pass_ms": y_ms,
+             "tail_before_ms": tail_ms, "tail_after_ms": new_tail_ms}
+    emit("parity_match_sigma", shape=list(TOMO_SHAPE), box=box,
+         max_rel_err=err, floored_one_side=one_side, floored=floored,
+         launches=counts[MS.NAME], finish_launches=counts[MS.FINISH_NAME],
+         orientations=MATCH_CALL, maps_against_plain=maps,
+         other_designs=other,
+         method="one orientation's moments under tm512-nsmask's ellipsoid "
+         "into match_sigma and plain_match_sigma on the card: max_rel_err "
+         "the largest |difference| over the plain value where neither map "
+         "is 0, floored_one_side the voxels 0 in one map only; then one "
+         "TemplateMatcher.match call of the orientations from a reset, the "
+         "counters set to 0 just before it, and maps_against_plain its "
+         "scores' largest |difference| over their largest |score| and the "
+         "indices that differ against the same call with the plain "
+         "version; other_designs the largest |difference| over the plain "
+         "value at widths of the shared-memory design (480 and 255 its "
+         "Stockham passes, 2042 Bluestein's), moments of a random positive "
+         "w")
+    emit("match_sigma_times", **times,
+         method="CUDA events around 20 back-to-back launches of each entry "
+         "alone (the plain version and the tails 5 calls), warm, at one "
+         "orientation's moments; bound_ms the two half-spectra read once "
+         "and the float32 map written once at 3.35 TB/s, finish_bound_ms "
+         "the map read and written once; y_pass_ms torch's two inverses "
+         "along y; tail_before_ms the matcher's former tail from the "
+         "spectral pass's outputs (torch's inverses along y and x and the "
+         "plain passes), tail_after_ms the inverses along y and match_sigma")
+    return {"max_rel_err": err, "floored_one_side": one_side,
+            "maps": maps, "launches": counts[MS.NAME],
+            "other_designs": other, **times}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1552,6 +1757,7 @@ def main():
     from voltools_tpu_torch.kernels import affine_resample as K
     from voltools_tpu_torch.kernels import affine_slab as S
     from voltools_tpu_torch.kernels import backproject as BP
+    from voltools_tpu_torch.kernels import match_sigma as MS
     from voltools_tpu_torch.kernels import match_update as MU
     from voltools_tpu_torch.kernels import match_zpass as ZP
     from voltools_tpu_torch.kernels import partial_sample as PS
@@ -1642,7 +1848,8 @@ def main():
         """The planner's kernel for each resampling launch, given as
         (matrices, shape, order), and C's ``back_projections``."""
         counts = {S.NAME: 0, K.NAME: 0, BP.NAME: back_projections, D1: 0,
-                  D2: 0, MU.NAME: 0, MU.NOISE_NAME: 0, ZP.NAME: 0}
+                  D2: 0, MU.NAME: 0, MU.NOISE_NAME: 0, ZP.NAME: 0,
+                  MS.NAME: 0, MS.FINISH_NAME: 0}
         for ms, shape, order in launches:
             counts[S.NAME if routed(ms, shape, order) is not None
                    else K.NAME] += 1
@@ -1667,7 +1874,7 @@ def main():
 
     # --------------------------------------------------------- 2. build
     # one nvcc per source, all started together
-    kernel_modules = (K, S, BP, PS, MU, ZP)
+    kernel_modules = (K, S, BP, PS, MU, ZP, MS)
     cached = {m.NAME: _build.library_path(
         m.NAME, m.LIBRARY.defines).is_file() for m in kernel_modules}
 
@@ -1915,6 +2122,9 @@ def main():
                                  launch_counts)
     # ------------ 4g. the spectral pass along z vs its plain version
     zpass_times = match_zpass_phase(torch, np, dev)
+    # ------------------- 4h. the sigma kernel vs its plain version
+    sigma_times = match_sigma_phase(torch, np, dev, zero_launches,
+                                    launch_counts)
 
     # --------------------------- 4b. C vs its plain version, bit for bit
     from voltools_tpu_torch.parallel.sharded import _shifted
@@ -2960,7 +3170,7 @@ def main():
 
     def counted(routes):
         n = {S.NAME: 0, K.NAME: 0, MU.NAME: 0, MU.NOISE_NAME: 0,
-             ZP.NAME: 0}
+             ZP.NAME: 0, MS.NAME: 0, MS.FINISH_NAME: 0}
         for r in routes:
             n[S.NAME if r.plan is not None else K.NAME] += 1
         return n
@@ -3165,7 +3375,8 @@ def main():
     recon_rows["sirt"] = err
     del res, got, sirt_one
     assert all(v > 0 for k, v in shard_launches.items()
-               if k not in (MU.NAME, MU.NOISE_NAME, ZP.NAME)), \
+               if k not in (MU.NAME, MU.NOISE_NAME, ZP.NAME, MS.NAME,
+                            MS.FINISH_NAME)), \
         shard_launches
     assert S.overflows(dev) == 0
     check_seconds = time.perf_counter() - t0
@@ -3801,6 +4012,7 @@ def main():
     assert main_tilt[MU.NAME] == 0, main_tilt
     assert main_tilt[MU.NOISE_NAME] == 0, main_tilt
     assert main_tilt[ZP.NAME] == 0, main_tilt
+    assert main_tilt[MS.NAME] == main_tilt[MS.FINISH_NAME] == 0, main_tilt
     kernels += [{
         "name": D1, "route": "cuda", "source": PS.SOURCE,
         "replaces": PS.REPLACES[D1], "launches": main_tilt[D1],
@@ -3945,6 +4157,43 @@ def main():
         "(phase 4f); the errors the largest of phases 4e and 4f "
         "(score_diff)",
         "tolerance": "bit for bit (the scores' bit patterns)",
+    }, {
+        "name": MS.NAME, "route": "cuda", "source": MS.SOURCE,
+        "replaces": "no TPU kernel (the JAX package has no template "
+        "matching): under a rotated mask, torch's C2R along x of the two "
+        "moments and the map's plain passes (the scale, addcmul_, the "
+        "float32 copy, the maximum, the floor's compare, rsqrt_, "
+        "masked_fill_), in TemplateMatcher",
+        "launches": match_path["sigma_launches"]["match_nsmask"][MS.NAME],
+        "finish_launches":
+            match_path["sigma_launches"]["match_nsmask"][MS.FINISH_NAME],
+        "launches_by_path": dict(
+            {k: v + by_path(MS.FINISH_NAME)[k]
+             for k, v in by_path(MS.NAME).items()},
+            **match_path["sigma_launches"]),
+        "max_abs_err": None, "max_rel_err": sigma_times["max_rel_err"],
+        "floored_one_side": sigma_times["floored_one_side"],
+        "maps_against_plain": sigma_times["maps"],
+        "other_designs": sigma_times["other_designs"],
+        "ms": sigma_times["ms"], "bound_ms": sigma_times["bound_ms"],
+        "bound_by": "bytes", "finish_ms": sigma_times["finish_ms"],
+        "finish_bound_ms": sigma_times["finish_bound_ms"],
+        "plain_ms": sigma_times["plain_ms"],
+        "y_pass_ms": sigma_times["y_pass_ms"],
+        "tail_before_ms": sigma_times["tail_before_ms"],
+        "tail_after_ms": sigma_times["tail_after_ms"],
+        "library_ms": None, "shape": sigma_times["shape"],
+        "matrices": "none: one orientation's moments under tm512-nsmask's "
+        "ellipsoid, ms the first entry's launch and finish_ms the "
+        "finish's; launches and finish_launches each entry's in one "
+        f"TemplateMatcher.match call of {MATCH_CALL} orientations under "
+        "an ellipsoidal mask (phase 4f; launches_by_path's match_nsmask), "
+        "none in the same call under a spherical one (match); "
+        "other_designs the shared-memory design's widths against the "
+        "plain version",
+        "tolerance": "8 units of 2^-24 of each voxel's plain value: w's "
+        "float64 rounding in another order of the row's transform and "
+        "rsqrt's last place",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,8 @@ import torch
 import voltools_tpu_torch  # noqa: F401 (declares every library)
 from voltools_tpu_torch.kernels import (_build, affine_resample,
                                         affine_slab, backproject,
-                                        match_update, match_zpass,
-                                        partial_sample)
+                                        match_sigma, match_update,
+                                        match_zpass, partial_sample)
 from voltools_tpu_torch.utils import trace
 
 PACKAGE = Path(_build.__file__).resolve().parent.parent
@@ -49,6 +49,12 @@ LAUNCHERS = {
     "SZ": (match_zpass, "_LAUNCH",
            "match_zpass launch failed: fake failure (7)",
            ("match_zpass",), True),
+    "SX": (match_sigma, "_LAUNCH",
+           "match_sigma launch failed: fake failure (7)",
+           ("match_sigma",), True),
+    "SX finish": (match_sigma, "_FINISH",
+                  "match_sigma_finish launch failed: fake failure (7)",
+                  ("match_sigma_finish",), True),
     "D1 step": (partial_sample, "_SAMPLE",
                 "partial_sample launch failed: fake failure (7)",
                 ("partial_sample",), True),
@@ -67,7 +73,8 @@ LAUNCH_KEYS = {"launches.affine_resample", "launches.affine_slab",
                "launches.partial_sample", "launches.partial_sample_ring",
                "launches.partial_project", "launches.partial_project.line",
                "launches.match_update", "launches.match_noise_update",
-               "launches.match_zpass"}
+               "launches.match_zpass", "launches.match_sigma",
+               "launches.match_sigma_finish"}
 DEVICE_COUNTERS = {"fast_path_voxels", "overflows", "window_misses",
                    "improved_voxels"}
 

@@ -175,7 +175,8 @@ def _emulated_fft(x, inverse):
 
 
 def test_the_emulation_takes_the_sources_constants():
-    text = SOURCE.read_text()
+    # the source and the FFTs it includes
+    text = SOURCE.read_text() + (SOURCE.parent / "match_fft.cuh").read_text()
     assert re.search(r"constexpr int kRadix = (\d+);", text)[1] == str(RADIX)
     assert re.search(r"constexpr int kPoints = (\d+);", text)[1] == str(
         RADIX)
@@ -190,8 +191,10 @@ def test_the_emulation_takes_the_sources_constants():
     # the shared-memory design's radix plan, as zp.radices emulates it
     plan = text[text.index("int radix_plan("):]
     plan = plan[:plan.index("\n}\n")]
-    for line in ("while (n % 16 == 0) add(16);",
-                 "for (int r = 8; r >= 2; r /= 2) {",
+    assert "args.passes = radix_plan(len, args.radices);" in text
+    assert "int radix_plan(int n, int* radices, int top = 16) {" in plan
+    for line in ("while (n % top == 0) add(top);",
+                 "for (int r = top / 2; r >= 2; r /= 2) {",
                  "if (n % r == 0) add(r);",
                  "for (int f = 3; n > 1; f += 2) {",
                  "while (n % f == 0) add(f);"):
@@ -219,16 +222,17 @@ def test_the_kernels_passes_are_the_fft(n, inverse):
 SMALL_RADICES = [2, 3, 4, 5, 7, 8, 16]
 
 
-def _emulated_shared_fft(x, inverse):
+def _emulated_shared_fft(x, inverse, top=16):
     """The shared-memory design's DFT of each column of ``x`` ((N, C)
-    complex128): the Stockham passes of N, or, where N has a prime factor
-    above ``MAX_DIRECT``, Bluestein's: the chirp w times the convolution,
-    by the passes of L, of the column times w with the filter, whose
-    spectrum over L is the tables'; the inverse conj(DFT(conj(x)))."""
+    complex128): the Stockham passes of N (radix ``top`` at most), or,
+    where N has a prime factor above ``MAX_DIRECT``, Bluestein's: the
+    chirp w times the convolution, by the passes of L (radix 16 at most),
+    of the column times w with the filter, whose spectrum over L is the
+    tables'; the inverse conj(DFT(conj(x)))."""
     n = x.shape[0]
     length = zp.bluestein_length(n)
     if length is None:
-        return _emulated_stockham(x, inverse)
+        return _emulated_stockham(x, inverse, top)
     if inverse:
         return _emulated_shared_fft(x.conj(), False).conj()
     tables = zp.chirp_tables(n, torch.complex128, "cpu")
@@ -239,9 +243,9 @@ def _emulated_shared_fft(x, inverse):
     return w * c[:n]
 
 
-def _emulated_stockham(x, inverse):
+def _emulated_stockham(x, inverse, top=16):
     """The shared-memory design's ``fft_shared`` of each column of ``x``
-    ((N, C) complex128): for each radix r of ``zp.radices(N)``, with ns
+    ((N, C) complex128): for each radix r of ``zp.radices(N, top)``, with ns
     the points of the sub-transforms so far, butterfly b < N / r takes
     inputs b + k N / r, twiddled by table entry (b % ns) (N / (ns r)) k;
     its DFT (radix-2 stages for a power of two; direct sums with the roots
@@ -253,7 +257,7 @@ def _emulated_stockham(x, inverse):
     if inverse:
         table = table.conj()
     src, ns = x, 1
-    for r in zp.radices(n):
+    for r in zp.radices(n, top):
         m = n // r
         step = m // ns
         b = torch.arange(m)

@@ -6,8 +6,14 @@ a direct sum and against the fixed-mask reference, at the small size of
 ``tests/test_torch_matching.py``: a (24, 40, 36) tomogram, a 12^3
 template, here an ellipsoidal mask of semi-axes (5, 3.5, 2.5).
 
-The card tests (marker ``cuda``, skipped without a CUDA device) import no
-JAX; on the card's machine::
+On the CPU the maps are those of the former tail of ``_local_inv`` (the
+inverses along y and x and the plain passes, kept here), bit for bit.  The
+card tests (marker ``cuda``, skipped without a CUDA device) also take the
+sigma kernel (``kernels/match_sigma.py``) at widths of each of its designs:
+its launches and ``match.sigma_pass`` an orientation under the ellipsoid,
+none under a sphere, a call that queues without a sync, and a width past
+the kernel refused at construction under the ellipsoid only.  They import no JAX; on the
+card's machine::
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_matching_nsmask.py -q
@@ -24,6 +30,9 @@ from portbench.reference import matching as reference
 from portbench.reference import matching_nsmask as reference_nsmask
 from portbench.reference import resample
 from voltools_tpu_torch import TemplateMatcher
+from voltools_tpu_torch.kernels import _build
+from voltools_tpu_torch.kernels import match_sigma
+from voltools_tpu_torch.models import matching
 from voltools_tpu_torch.utils import trace
 
 from test_torch_matching import (BOX, C, GEOMETRIES, SHAPE, _blobs, _data,
@@ -195,10 +204,124 @@ def test_a_pasted_elongated_template_is_found_with_its_index(k, position):
     assert scores[position] > 0.5
 
 
+def _former_local_inv(self, mask, n):
+    """``TemplateMatcher._local_inv`` as it was before the sigma kernel:
+    the spectral pass, both inverses along y and x, the scale, addcmul_,
+    the float32 copy, the floor, rsqrt_ and masked_fill_."""
+    self._wide[0].view(-1).index_copy_(0, self._place,
+                                       mask.view(-1).double())
+    mean, w = self._products(self._forward(self._wide),
+                             self._spectrum_wide, self._spectrum_sq_wide)
+    mean = matching._irfft_yx(mean, self.shape)
+    w = matching._irfft_yx(w, self.shape)
+    w.mul_(math.prod(self.shape) * n.double()).addcmul_(
+        mean, mean, value=-1.0)
+    del mean
+    w = w.to(torch.float32)
+    low = w <= matching.SIGMA_FLOOR ** 2 * w.max().clamp_min(0.0)
+    return w.rsqrt_().masked_fill_(low, 0.0)
+
+
+@pytest.mark.parametrize("shape", [SHAPE, (16, 20, 128)])
+def test_on_the_cpu_the_maps_are_the_former_tail(monkeypatch, shape):
+    tomogram, template, _, ms = _data(orientations=4)
+    tomogram = np.resize(tomogram, shape).astype(np.float32)
+    tm = TemplateMatcher(tomogram, template, _ellipsoid(), device="cpu")
+    moved, _ = _traced(tm, ms, ("match.sigma_pass", "match.local_sigma"))
+    assert moved == {"match.sigma_pass": 0, "match.local_sigma": 4}
+    got = tm.result(output="device")
+    monkeypatch.setattr(TemplateMatcher, "_local_inv", _former_local_inv)
+    tm.reset()
+    tm.match(ms)
+    for a, b in zip(got, tm.result(output="device")):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+
+
+# widths of the sigma kernel's designs: registers, shared memory (even
+# and odd) and Bluestein's (X / 2 = 97, a prime above MAX_DIRECT)
+WIDTHS = {"registers": 128, "shared": 36, "odd": 33, "bluestein": 194}
+
+
+def _wide_data(orientations=16, width=128):
+    rng = np.random.default_rng(7)
+    shape = (24, 40, width)
+    tomogram = (_blobs(rng, shape, 12, 2.5, 10.0)
+                + 0.05 * rng.standard_normal(shape)).astype(np.float32)
+    template = _elongated(rng)
+    ms = traffic.rotation_pool(rng, orientations, (BOX,) * 3)
+    return tomogram, template, ms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spherical,design", [
+    (True, "registers")] + [(False, d) for d in WIDTHS])
+def test_on_the_card_the_sigma_kernel_takes_each_orientation(card,
+                                                             spherical,
+                                                             design):
+    tomogram, template, ms = _wide_data(width=WIDTHS[design])
+    assert match_sigma.design(WIDTHS[design]) == (
+        "shared" if design == "odd" else design)
+    mask = _mask() if spherical else _ellipsoid()
+    tm = TemplateMatcher(tomogram, template, mask, device="cuda")
+    assert tm.spherical == spherical
+    tm.match(ms[:1])                      # builds the kernels
+    tm.reset()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    moved, _ = _traced(tm, ms, ("match.sigma_pass", "match.local_sigma"))
+    per = 0 if spherical else 16
+    assert moved == {"match.sigma_pass": per, "match.local_sigma": per}
+    launches = _build.launches()
+    assert launches[match_sigma.NAME] == per
+    assert launches[match_sigma.FINISH_NAME] == per
+    # the same call with the tail's plain version, within the cells' limit
+    # on max_rel_err (portbench/cells/tm512-nsmask-match.json)
+    scores, indices = tm.result()
+    kernel = match_sigma.match_sigma
+    try:
+        match_sigma.match_sigma = match_sigma.plain_match_sigma
+        tm.reset()
+        tm.match(ms)
+    finally:
+        match_sigma.match_sigma = kernel
+    want, index = tm.result()
+    assert np.abs(scores - want).max() <= 1e-4 * np.abs(want).max()
+    assert (indices != index).mean() <= 0.01
+
+
+@pytest.mark.cuda
+def test_on_the_card_the_sigma_kernel_queues_without_a_sync(card):
+    tomogram, template, ms = _wide_data(orientations=4)
+    tm = TemplateMatcher(tomogram, template, _ellipsoid(), device="cuda")
+    tm.match(ms[:1])                      # builds the kernels, plans FFTs
+    tm.reset()
+    torch.cuda.synchronize()
+    before = _build.launches()[match_sigma.NAME]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tm.match(ms)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _build.launches()[match_sigma.NAME] == before + 4
+
+
+@pytest.mark.cuda
+def test_on_the_card_a_width_past_the_sigma_kernel_is_refused(card):
+    width = match_sigma.MAX_WIDTH + 1
+    tomogram = np.random.default_rng(3).standard_normal(
+        (BOX, BOX, width)).astype(np.float32)
+    _, template, _, _ = _data(orientations=1)
+    with pytest.raises(ValueError, match="sigma kernel takes a width"):
+        TemplateMatcher(tomogram, template, _ellipsoid(), device="cuda")
+    # a spherical mask never takes the sigma kernel
+    tm = TemplateMatcher(tomogram, template, _mask(), device="cuda")
+    assert tm.spherical
 
 
 @pytest.mark.cuda

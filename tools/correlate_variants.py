@@ -12,7 +12,11 @@ Two parts:
   the spans apart, each kernel by name in us a call: ``match.correlate``
   (``_correlation``) and, under the ellipsoid, ``match.sigma``
   (``_local_inv`` on the rotated mask of one orientation), with the
-  correlation's strides as the update kernel receives it.  The matcher is
+  correlation's strides as the update kernel receives it; and
+  ``match.sigma``'s kernels by part (``sigma_parts_us``): the spectral
+  pass (SZ), the sigma kernel (SX, either design) and its finish, and
+  torch's kernels (the forward's passes and the inverses along y; on a
+  tree before SX, the C2R and the plain passes too).  The matcher is
   imported from ``root`` (the first argument after ``score``; default:
   this repository), so another commit's tree can be profiled in the same
   call.
@@ -207,6 +211,21 @@ def variants(torch, dev="cuda"):
     return out
 
 
+# match.sigma's parts, by a name the profiler gives their kernels
+SIGMA_PARTS = (("match_zpass", "SZ"), ("match_sigma_finish", "SX finish"),
+               ("match_sigma", "SX"))
+
+
+def sigma_parts(kernels_us):
+    """{part: us} of ``match.sigma``'s kernels: SZ, SX and its finish by
+    name, every other kernel under ``torch``."""
+    parts = defaultdict(float)
+    for name, us in kernels_us.items():
+        part = next((p for key, p in SIGMA_PARTS if key in name), "torch")
+        parts[part] += us
+    return dict(parts)
+
+
 def score(torch, root):
     sys.path.insert(0, root)
     from voltools_tpu_torch import TemplateMatcher
@@ -244,10 +263,12 @@ def score(torch, root):
             n = rotated.sum()
             spans["match.sigma"] = profiled(
                 torch, lambda: tm._local_inv(rotated, n), 10)
+            spans["sigma_parts_us"] = sigma_parts(spans["match.sigma"])
         out[name] = {
             "kernels_us": per, "device_us": sum(per.values()),
             "spans_us": spans,
-            "span_device_us": {k: sum(v.values()) for k, v in spans.items()},
+            "span_device_us": {k: sum(v.values()) for k, v in spans.items()
+                               if k.startswith("match.")},
             "cc_stride": list(cc.stride()),
             "cc_contiguous": cc.is_contiguous(),
             "event_ms_an_orientation": ms_call / ORIENTATIONS,

@@ -78,8 +78,9 @@ def build(name, source, workdir):
     with open(path, "w") as f:
         f.write(source)
     lib = os.path.join(workdir, f"lib{name}.so")
-    proc = subprocess.run([_build.nvcc_path(), *_build.flags(), "-o", lib,
-                           path], capture_output=True, text=True)
+    proc = subprocess.run([_build.nvcc_path(), *_build.flags(), "-I",
+                           str(_build.CSRC_DIR), "-o", lib, path],
+                          capture_output=True, text=True)
     if proc.returncode:
         raise SystemExit(f"nvcc failed on {name}:\n{proc.stderr[-3000:]}")
     log = proc.stdout + proc.stderr

@@ -74,18 +74,21 @@ def supported(points: int, device) -> bool:
     return torch.device(device).type == "cuda" and 1 <= points <= MAX_POINTS
 
 
-def radices(points: int) -> list:
+def radices(points: int, top: int = 16) -> list:
     """The passes' radices of the shared-memory design for ``points``, as
-    the source's ``radix_plan`` gives them: 16 while it divides, then the
-    power of two left, then the odd primes, ascending."""
+    the source's ``radix_plan`` gives them: ``top`` (a power of two; 16
+    for this kernel) while it divides, then the power of two left, then
+    the odd primes, ascending."""
     out = []
-    while points % 16 == 0:
-        out.append(16)
-        points //= 16
-    for r in (8, 4, 2):
+    while points % top == 0:
+        out.append(top)
+        points //= top
+    r = top // 2
+    while r >= 2:
         if points % r == 0:
             out.append(r)
             points //= r
+        r //= 2
     f = 3
     while points > 1:
         while points % f == 0:

@@ -48,7 +48,13 @@ correlation and the update a fourth span computes ``sigma_local`` under
   complex128, the forward in float64 buffers of its own): the difference
   cancels where the tomogram's local ``sigma`` is small against its local
   mean, and float32 transforms' rounding, which scales with the whole
-  volume's values, reads there as 0.5% of ``1 / sigma``.
+  volume's values, reads there as 0.5% of ``1 / sigma``.  After the
+  spectral pass and torch's inverse along y, the C2R along x, ``mean_sq -
+  mean^2``, its float32 map, the floor and the reciprocal square root are
+  one pass of a hand kernel and an in-place finish on the card, which
+  take any width up to ``match_sigma.MAX_WIDTH``
+  (:mod:`..kernels.match_sigma`); on the CPU, torch's C2R and plain
+  passes, the kernel's plain version.
 
 That is five tomogram-sized transforms an orientation where a spherical
 mask takes two.
@@ -142,6 +148,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels import match_sigma as sigma_map
 from ..kernels import match_zpass as zpass
 from ..kernels.match_update import match_noise_update, match_update
 from ..transforms import _as_tensor, _device
@@ -352,7 +359,9 @@ class TemplateMatcher:
     statistics computed once; any other is rotated with the template and
     has them recomputed for each orientation (the module's docstring).
     On a CUDA device the tomogram's depth is at most
-    ``match_zpass.MAX_POINTS``, the spectral kernel's longest column.
+    ``match_zpass.MAX_POINTS``, the spectral kernel's longest column, and
+    under a mask that is not spherical its width at most
+    ``match_sigma.MAX_WIDTH``, the sigma kernel's longest row.
     ``tilt_range``, ``tilt_axis`` and ``projection_axis`` give the wedge
     (:func:`missing_wedge`); ``interpolation`` the template's rotation,
     and the mask's.  ``random_phase_correction`` scores a noise template
@@ -394,6 +403,12 @@ class TemplateMatcher:
         if not self._n_mask > 0:
             raise ValueError("the mask's weights sum to no more than 0")
         self.spherical = _is_spherical(mask_t, self.centre)
+        if (dev.type == "cuda" and not self.spherical
+                and not sigma_map.supported(self.shape[2], dev)):
+            raise ValueError(f"under a mask that is not spherical, the sigma "
+                             f"kernel takes a width of at most "
+                             f"{sigma_map.MAX_WIDTH} on a CUDA device, got "
+                             f"{self.shape[2]}")
         self._dev = dev
         if self.spherical:
             spectrum, self._inv = _tomogram_terms(
@@ -542,20 +557,26 @@ class TemplateMatcher:
         float32 tensor.  The two correlations, float64, are ``N n`` times
         the local mean and mean square, so ``w = N n * mean_sq' - mean'^2``
         is ``(N n sigma)^2``, and the map is ``w``'s reciprocal square
-        root."""
+        root: after torch's inverse along y, the C2R along x and the map
+        (:mod:`..kernels.match_sigma`: its kernel on the card, its plain
+        version on the CPU)."""
+        if self._dev.type == "cuda":
+            trace.count("match.sigma_pass")
+        # sigma > SIGMA_FLOOR * max(sigma) where w > SIGMA_FLOOR^2 * max(w)
+        return sigma_map.match_sigma(*self._moments(mask), n, self.shape[2],
+                                     SIGMA_FLOOR ** 2)
+
+    def _moments(self, mask: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """The rotated ``mask``'s two correlations, ``N n`` times the local
+        mean and mean square, as complex128 spectra along x: the mask
+        placed in the float64 rows, its forward, the spectral pass's two
+        products and torch's inverse along y, which keeps y innermost."""
         self._wide[0].view(-1).index_copy_(0, self._place,
                                            mask.view(-1).double())
-        mean, w = self._products(self._forward(self._wide),
-                                 self._spectrum_wide, self._spectrum_sq_wide)
-        mean = _irfft_yx(mean, self.shape)
-        w = _irfft_yx(w, self.shape)
-        w.mul_(math.prod(self.shape) * n.double()).addcmul_(
-            mean, mean, value=-1.0)
-        del mean
-        w = w.to(torch.float32)
-        # sigma > SIGMA_FLOOR * max(sigma) where w > SIGMA_FLOOR^2 * max(w)
-        low = w <= SIGMA_FLOOR ** 2 * w.max().clamp_min(0.0)
-        return w.rsqrt_().masked_fill_(low, 0.0)
+        return tuple(torch.fft.ifft(t, dim=1, norm="forward")
+                     for t in self._products(self._forward(self._wide),
+                                             self._spectrum_wide,
+                                             self._spectrum_sq_wide))
 
     def _template(self, m: np.ndarray, mask: Optional[torch.Tensor] = None,
                   n=None, sv: Optional[StaticVolume] = None) -> torch.Tensor:
