@@ -10,10 +10,10 @@ On the CPU the maps are those of the former tail of ``_local_inv`` (the
 inverses along y and x and the plain passes, kept here), bit for bit.  The
 card tests (marker ``cuda``, skipped without a CUDA device) also take the
 sigma kernel (``kernels/match_sigma.py``) at widths of each of its designs:
-its launches and ``match.sigma_pass`` an orientation under the ellipsoid,
-none under a sphere, a call that queues without a sync, and a width past
-the kernel refused at construction under the ellipsoid only.  They import no JAX; on the
-card's machine::
+its launches and ``match.local_sigma`` an orientation under the
+ellipsoid, none under a sphere, a call that queues without a sync, and a
+width past the kernel refused at construction under the ellipsoid only.
+They import no JAX; on the card's machine::
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_matching_nsmask.py -q
@@ -155,12 +155,9 @@ def test_only_a_mask_that_is_not_spherical_recomputes_sigma(spherical):
     assert tm.spherical == spherical
     assert (tm._inv is not None) == spherical
     moved, spans = _traced(tm, ms, (
-        "match.orientations", "match.transforms", "match.pruned_rows",
-        "match.local_sigma"))
+        "match.orientations", "match.transforms", "match.local_sigma"))
     assert moved == {"match.orientations": 3,
                      "match.transforms": 3 * (2 if spherical else 5),
-                     "match.pruned_rows": 3 * BOX * BOX * (
-                         1 if spherical else 2),
                      "match.local_sigma": 0 if spherical else 3}
     assert spans.get("match.sigma", 0) == (0 if spherical else 3)
     assert spans["match.correlate"] == spans["match.update"] == 3
@@ -227,8 +224,8 @@ def test_on_the_cpu_the_maps_are_the_former_tail(monkeypatch, shape):
     tomogram, template, _, ms = _data(orientations=4)
     tomogram = np.resize(tomogram, shape).astype(np.float32)
     tm = TemplateMatcher(tomogram, template, _ellipsoid(), device="cpu")
-    moved, _ = _traced(tm, ms, ("match.sigma_pass", "match.local_sigma"))
-    assert moved == {"match.sigma_pass": 0, "match.local_sigma": 4}
+    moved, _ = _traced(tm, ms, ("match.local_sigma",))
+    assert moved == {"match.local_sigma": 4}
     got = tm.result(output="device")
     monkeypatch.setattr(TemplateMatcher, "_local_inv", _former_local_inv)
     tm.reset()
@@ -274,9 +271,9 @@ def test_on_the_card_the_sigma_kernel_takes_each_orientation(card,
     tm.reset()
     torch.cuda.synchronize()
     _build.reset_launches()
-    moved, _ = _traced(tm, ms, ("match.sigma_pass", "match.local_sigma"))
+    moved, _ = _traced(tm, ms, ("match.local_sigma",))
     per = 0 if spherical else 16
-    assert moved == {"match.sigma_pass": per, "match.local_sigma": per}
+    assert moved == {"match.local_sigma": per}
     launches = _build.launches()
     assert launches[match_sigma.NAME] == per
     assert launches[match_sigma.FINISH_NAME] == per

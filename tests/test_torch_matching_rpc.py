@@ -166,7 +166,7 @@ def test_no_orientation_scored_reads_minus_inf_and_no_nan(mask_kind):
 def test_each_orientation_scores_the_noise_template_in_its_spans(mask_kind):
     tm, (_, _, _, ms) = _matcher(mask_kind, orientations=3)
     spherical = mask_kind == "spherical"
-    names = ("match.orientations", "match.transforms", "match.pruned_rows",
+    names = ("match.orientations", "match.transforms",
              "match.zpass_products", "match.random_phase")
     before = trace.counts()
     trace.start()
@@ -178,8 +178,6 @@ def test_each_orientation_scores_the_noise_template_in_its_spans(mask_kind):
     moved = {k: after.get(k, 0) - before.get(k, 0) for k in names}
     assert moved == {"match.orientations": 3,
                      "match.transforms": 3 * (4 if spherical else 7),
-                     "match.pruned_rows": 3 * BOX * BOX * (
-                         2 if spherical else 3),
                      "match.zpass_products": 3 * (2 if spherical else 4),
                      "match.random_phase": 3}
     spans = [e["name"] for e in trace.export()["traceEvents"]

@@ -1,5 +1,5 @@
 """The port's tracer (``voltools_tpu_torch.utils.trace``): off by default
-and free there, the spans of the four instrumented entry points, results
+and free there, the spans of the six instrumented entry points, results
 unchanged by it, its counters, ``idle_gaps`` and the export.
 
 The CPU tests import torch and the port only.  The card tests (marker
@@ -60,14 +60,21 @@ def _entry(name, device="cpu"):
     if name == "StaticVolume.affine":
         sv = vt.StaticVolume(vol, device=device)
         return lambda: sv.affine(m)
+    if name == "StaticVolume.affine_batch":
+        sv = vt.StaticVolume(vol, device=device)
+        return lambda: sv.affine_batch(ms)
+    if name == "TiltSeriesProjector.project":
+        proj = TiltSeriesProjector(vol, device=device)
+        return lambda: proj.project(ANGLES, tilt_axis=0)
     if name == "wbp_reconstruct":
         return lambda: wbp_reconstruct(projs, ms, SHAPE, device=device)
     return lambda: sirt_reconstruct(projs, ms, SHAPE, iterations=ITERATIONS,
                                     device=device)
 
 
-def _sirt_kernel_spans():
-    """The forward's spans as the planner routes the tilt series."""
+def _tilt_kernel_spans():
+    """The kernel's spans as the planner routes the tilt series (SIRT's
+    forward, the projector's and the batch's one launch)."""
     _, _, ms, _ = _data()
     if route(ms, SHAPE, "linear").plan is None:
         return WALK
@@ -79,6 +86,11 @@ def _expected(name):
         return RESAMPLE | WALK
     if name == "StaticVolume.affine":
         return {"api.affine"} | RESAMPLE | WALK
+    if name == "StaticVolume.affine_batch":
+        return {"api.affine_batch"} | RESAMPLE | _tilt_kernel_spans()
+    if name == "TiltSeriesProjector.project":
+        return ({"api.project", "project.matrices", "project.sum"}
+                | RESAMPLE | _tilt_kernel_spans())
     if name == "wbp_reconstruct":
         # kernel_c.table is on the CUDA path of the wrapper (the card test)
         return {"api.wbp", "wbp.validate", "wbp.plan", "wbp.filter",
@@ -86,11 +98,12 @@ def _expected(name):
     return ({"api.sirt", "sirt.validate", "sirt.normalise",
              "sirt.iteration", "sirt.forward", "sirt.update",
              "sirt.adjoint", "kernel_c", "project.sum"} | RESAMPLE
-            | _sirt_kernel_spans())
+            | _tilt_kernel_spans())
 
 
 ENTRIES = ["affine", "StaticVolume.affine", "wbp_reconstruct",
-           "sirt_reconstruct"]
+           "sirt_reconstruct", "StaticVolume.affine_batch",
+           "TiltSeriesProjector.project"]
 
 
 def _spans(export):
@@ -176,6 +189,34 @@ def test_each_call_has_its_own_call_id():
         e["args"]["id"] for e in roots}
 
 
+@pytest.mark.parametrize("name,root", [
+    ("StaticVolume.affine_batch", "api.affine_batch"),
+    ("TiltSeriesProjector.project", "api.project")])
+def test_each_call_of_a_batch_entry_has_its_own_call_id(name, root):
+    call = _entry(name)
+    _, export = _traced(lambda: [call() for _ in range(3)])
+    spans = _spans(export)
+    roots = [e for e in spans if e["name"] == root]
+    assert len(roots) == 3
+    assert all(e["args"]["parent"] is None for e in roots)
+    assert {e["args"]["call"] for e in spans} == {
+        e["args"]["id"] for e in roots}
+
+
+def test_the_matrices_and_each_resample_of_a_projection_share_its_call():
+    _, export = _traced(_entry("TiltSeriesProjector.project"))
+    spans = _spans(export)
+    (root,) = [e for e in spans if e["name"] == "api.project"]
+    (matrices,) = [e for e in spans if e["name"] == "project.matrices"]
+    resamples = [e for e in spans if e["name"] == "resample"]
+    assert resamples
+    for e in [matrices] + resamples:
+        assert e["args"]["call"] == root["args"]["id"]
+        assert e["args"]["parent"] == root["args"]["id"]
+    # the matrices come first, before the projector's first launch
+    assert matrices["ts"] + matrices["dur"] <= min(e["ts"] for e in resamples)
+
+
 def _matcher(orientations):
     rng = np.random.default_rng(5)
     box = 8
@@ -218,11 +259,9 @@ def test_matching_spans_nest_in_match_and_count_each_orientation(
             assert ancestor["name"] == "match.template"
     assert names.count("api.affine") == orientations
     moved = {k: after.get(k, 0) - before.get(k, 0)
-             for k in ("match.orientations", "match.transforms",
-                       "match.pruned_rows")}
+             for k in ("match.orientations", "match.transforms")}
     assert moved == {"match.orientations": orientations,
-                     "match.transforms": 2 * orientations,
-                     "match.pruned_rows": 8 * 8 * orientations}
+                     "match.transforms": 2 * orientations}
     for a, b in zip(off, tm.result()):
         assert np.array_equal(a, b)
 

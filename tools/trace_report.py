@@ -5,19 +5,22 @@ saw, the anchor's error and the tracer's cost.
     python3 tools/trace_report.py anchor [--trials N]
     python3 tools/trace_report.py offcost [--parent DIR ...] [--calls N]
 
-``cells`` sets up each benchmark cell, runs its window and its traced
-passes (as ``portbench/run.py --trace 1`` does, without the check), then
-a program pass: the window once more with the program's tracer on.  It
-uses the drivers' public methods only (``setup``, ``window``, ``trace``,
-``release``).  It prints one JSON line a cell: the benchmark's per-layer
-metrics, what the program's spans give (``span_metrics``), the pass's
-coverage (its device intervals' union per call over the queued pass's
-busy time per call), its idle plus busy against its wall, its on-cost
-(the pass's wall per call over the window's), every attributed idle gap
-and each span's device time, us a call; the export goes to
-``<out>/trace_<cell>.json`` (default ``trace_exports/``) for Perfetto.
-Give it one cell a process, as the benchmark runs them.  The benchmark
-itself runs no program pass (PERF.md, open questions).
+``cells`` sets up each benchmark cell and runs its window and its traced
+passes (as ``portbench/run.py --trace 1`` does, without the check), the
+replaying drivers' rounds once more in a program pass
+(``portbench/drivers/_program.py``: ``replay`` is wrapped where the
+drivers look it up), then the window once more in a program pass of its
+own.  Beside that it uses the drivers' public methods only (``setup``,
+``window``, ``trace``, ``release``).  It prints one JSON line a cell: the
+benchmark's per-layer metrics; of the rounds' pass, the quantities a
+metric would read of it, a call (``_program.QUANTITIES``), its coverage
+(its busy time a call over the queued pass's busy time a call), its idle
+plus busy and its windows against the rounds' wall, its idle gaps, and
+each span's idle, self and device time, us a call; of the window's pass,
+its on-cost (its wall a call over the window's, tracer on against off),
+its idle gaps and the counters it moved.  The window pass's export goes
+to ``<out>/trace_<cell>.json`` (default ``trace_exports/``) for
+Perfetto.  Give it one cell a process, as the benchmark runs them.
 ``anchor``
 places a known device sleep on the host clock and prints the errors.
 ``offcost`` prints the host us a call of ``StaticVolume.affine`` and of
@@ -41,66 +44,36 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def program_pass(driver, trace):
-    """The driver's window once more, with the program's tracer on
-    (device work included): its record, the export, its idle gaps and the
-    counters it moved."""
-    before = trace.counts()
-    trace.start(device=True)
+def _per_call(seconds, calls, scale=1e6):
+    """Seconds by name as us a call (``scale``: per second), largest
+    first."""
+    return {k: v / calls * scale for k, v in sorted(
+        seconds.items(), key=lambda kv: -kv[1])}
+
+
+def _rounds_pass(driver, record, passes):
+    """``driver.trace(record)`` with ``_replay.replay`` wrapped where the
+    drivers look it up: after each replay, its rounds in a program pass,
+    appended to ``passes``."""
+    from portbench.drivers import _program, _replay
+    replay = _replay.replay
+
+    def then_pass(cell, rounds, spans, patches, params, sync_each):
+        found = replay(cell, rounds, spans, patches, params, sync_each)
+        passes.append(_program.program_pass(cell, rounds, sync_each))
+        return found
+
+    _replay.replay = then_pass
     try:
-        record = driver.window()
+        driver.trace(record)
     finally:
-        trace.stop()
-    export = trace.export()
-    after = trace.counts()
-    return {"calls": record["completed"], "wall_s": record["window_s"],
-            "export": export, "idle": trace.idle_gaps(export),
-            "counts": {k: v - before.get(k, 0) for k, v in after.items()
-                       if v != before.get(k, 0)}}
-
-
-def span_metrics(prog, trace):
-    """What the program's spans give a call of the pass: host us of
-    ``resample.upload``, of ``kernel_a`` and of ``wbp.validate`` with
-    ``wbp.plan``; device ms of ``wbp.filter``; device ms of the
-    ``project.sum`` spans a forward sweep (their parents, one a
-    ``project_stack``) and of ``sirt.update`` an iteration; device-idle
-    us while a span was open.  A quantity whose spans the pass did not
-    record is left out."""
-    calls = prog["calls"]
-    host, device = {}, {}
-    for e in prog["export"]["traceEvents"]:
-        if e["ph"] == "X":
-            found = host if e["pid"] == trace.HOST else device
-            found.setdefault(e["name"], []).append(e)
-
-    def host_us(*names):
-        spans = [e for name in names for e in host.get(name, [])]
-        return sum(e["dur"] for e in spans) / calls if spans else None
-
-    def device_ms(name):
-        return sum(e["dur"] for e in device.get(name, [])) / 1e3
-
-    found = {"upload_host_us": host_us("resample.upload"),
-             "wrapper_host_us": host_us("kernel_a"),
-             "validate_host_us": host_us("wbp.validate", "wbp.plan"),
-             "idle_in_program_us": sum(
-                 v for k, v in prog["idle"]["idle_s"].items()
-                 if k != trace.OUTSIDE) / calls * 1e6}
-    if device.get("wbp.filter"):
-        found["filter_ms"] = device_ms("wbp.filter") / calls
-    if device.get("project.sum"):
-        forwards = {e["args"]["parent"] for e in host["project.sum"]}
-        found["stack_sum_ms"] = device_ms("project.sum") / len(forwards)
-    if device.get("sirt.update") and host.get("sirt.iteration"):
-        found["update_ms"] = (device_ms("sirt.update")
-                              / len(host["sirt.iteration"]))
-    return {k: v for k, v in found.items() if v is not None}
+        _replay.replay = replay
 
 
 def cells(args):
     sys.path.insert(0, str(ROOT))
     from portbench import harness
+    from portbench.drivers import _program
     from voltools_tpu_torch.utils import trace
     bench = harness.benchmark()
     out = Path(args.out)
@@ -114,43 +87,48 @@ def cells(args):
         driver.setup()
         record = driver.window()
         record["setup_s"] = record["t0"] - started
-        driver.trace(record)
+        passes = []
+        _rounds_pass(driver, record, passes)
         tr = record["trace"]
         metrics = {m["name"]: harness.load_module("metrics", m["name"]).read(
             record) for m in bench["per_layer"] if harness.applies(m, name)}
-        prog = program_pass(driver, trace)
-        idle = prog["idle"]
-        calls = prog["calls"]
+        line = {"cell": name, "metrics": metrics}
+        if passes:
+            own = passes[0]
+            calls = own["calls"]
+            line["rounds"] = {
+                "calls": calls, "quantities": _program.quantities(own),
+                "coverage": own["busy_s"] / calls / (tr["busy_s"]
+                                                     / tr["calls"]),
+                "busy_us": own["busy_s"] / calls * 1e6,
+                "queued_busy_us": tr["busy_s"] / tr["calls"] * 1e6,
+                "idle_plus_busy_over_wall": (
+                    sum(own["idle_s"].values()) + own["busy_s"])
+                / own["round_s"],
+                "windows_over_rounds": own["wall_s"] / own["round_s"],
+                "idle_gaps": _program.idle_gaps(own),
+                "idle_us": _per_call(own["idle_s"], calls),
+                "self_us": _per_call(own["self_s"], calls),
+                "device_us": _per_call(own["device_ms"], calls, 1e3),
+                "counts": own["counts"]}
+        # the window once more under the tracer, for its on-cost
+        windows = []
+        prog = _program.program_pass(
+            cell, [[lambda: windows.append(driver.window())]],
+            sync_each=False)
         window_us = record["window_s"] / record["completed"] * 1e6
-        device = {}
-        for e in prog["export"]["traceEvents"]:
-            if e["ph"] == "X" and e["pid"] == trace.DEVICE:
-                found = device.setdefault(e["name"], [0.0, 0])
-                found[0] += e["dur"] / calls
-                found[1] += 1 / calls
-        line = {
-            "cell": name, "metrics": metrics,
-            "spans": span_metrics(prog, trace),
-            "coverage": idle["busy_s"] / calls / (tr["busy_s"] / tr["calls"]),
-            "busy_us": idle["busy_s"] / calls * 1e6,
-            "queued_busy_us": tr["busy_s"] / tr["calls"] * 1e6,
-            "idle_plus_busy_over_wall": (sum(idle["idle_s"].values())
-                                         + idle["busy_s"]) / prog["wall_s"],
-            "pass_us": prog["wall_s"] / calls * 1e6,
-            "window_us": window_us,
-            "on_cost": prog["wall_s"] / calls * 1e6 / window_us,
-            "idle_us": {k: v / calls * 1e6 for k, v in sorted(
-                idle["idle_s"].items(), key=lambda kv: -kv[1])},
-            "device_us": device,    # us and intervals a call, by span
-            "counts": prog["counts"],
-            # the export's counters that the device readers add
-            "device_counters": {
-                k: v for k, v in prog["export"]["otherData"][
-                    "counters"].items() if k not in trace.counts()}}
-        (out / f"trace_{name}.json").write_text(json.dumps(prog["export"]))
+        pass_us = windows[0]["window_s"] / windows[0]["completed"] * 1e6
+        line["window"] = {
+            "pass_us": pass_us, "window_us": window_us,
+            "on_cost": pass_us / window_us,
+            "idle_plus_busy_over_wall": (sum(prog["idle_s"].values())
+                                         + prog["busy_s"]) / prog["wall_s"],
+            "idle_gaps": _program.idle_gaps(prog),
+            "counts": prog["counts"]}
+        (out / f"trace_{name}.json").write_text(json.dumps(trace.export()))
         print(json.dumps(line), flush=True)
         driver.release()
-        del driver, record, tr, prog
+        del driver, record, tr, prog, passes
         trace.start()       # forgets the pass's spans and events
         trace.stop()
 

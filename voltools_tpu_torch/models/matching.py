@@ -498,7 +498,6 @@ class TemplateMatcher:
             with trace.span("match.sigma", device=self._dev):
                 inv = self._local_inv(*rotated)
                 trace.count("match.transforms", 3)
-                trace.count("match.pruned_rows", self.box[0] * self.box[1])
                 trace.count("match.local_sigma")
                 trace.count("match.zpass_products", 2)
         with trace.span("match.update", device=self._dev):
@@ -525,7 +524,6 @@ class TemplateMatcher:
     def _counted_correlation(self) -> torch.Tensor:
         """:meth:`_correlation` of the placed template, counted."""
         trace.count("match.transforms", 2)
-        trace.count("match.pruned_rows", self.box[0] * self.box[1])
         trace.count("match.zpass_products")
         return self._correlation()
 
@@ -560,8 +558,6 @@ class TemplateMatcher:
         root: after torch's inverse along y, the C2R along x and the map
         (:mod:`..kernels.match_sigma`: its kernel on the card, its plain
         version on the CPU)."""
-        if self._dev.type == "cuda":
-            trace.count("match.sigma_pass")
         # sigma > SIGMA_FLOOR * max(sigma) where w > SIGMA_FLOOR^2 * max(w)
         return sigma_map.match_sigma(*self._moments(mask), n, self.shape[2],
                                      SIGMA_FLOOR ** 2)

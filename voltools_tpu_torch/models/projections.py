@@ -162,11 +162,14 @@ class TiltSeriesProjector:
                 output: Optional[str] = None):
         """The full tilt series: an (N, H', W') stack of projections, as
         numpy, or as the device tensor with ``output='device'``."""
-        if output is not None and not (isinstance(output, str)
-                                       and output == "device"):
-            raise ValueError(
-                f"output must be None or 'device', got {output!r}")
-        result = self._project(self.tilt_matrices(angles_deg, tilt_axis))
-        if output == "device":
-            return result
-        return result.cpu().numpy()
+        with trace.span("api.project"):
+            if output is not None and not (isinstance(output, str)
+                                           and output == "device"):
+                raise ValueError(
+                    f"output must be None or 'device', got {output!r}")
+            with trace.span("project.matrices"):
+                matrices = self.tilt_matrices(angles_deg, tilt_axis)
+            result = self._project(matrices)
+            if output == "device":
+                return result
+            return result.cpu().numpy()

@@ -154,43 +154,44 @@ class StaticVolume:
         resamples as many matrices as fit the output budget
         (``_BATCH_BYTES_BUDGET``); ``output='device'`` returns the whole
         stack as one CUDA tensor, so it must fit on the device."""
-        _check_output(output, self.device)
-        transform_ms = np.asarray(transform_ms, dtype=np.float32)
-        if transform_ms.shape[:1] == (0,):
-            # an empty sweep is an empty stack
-            transform_ms = transform_ms.reshape(0, 4, 4)
-        if transform_ms.ndim != 3 or transform_ms.shape[1:] != (4, 4):
-            raise ValueError(
-                f"expected an (N, 4, 4) stack, got {transform_ms.shape}")
-        n = transform_ms.shape[0]
-        full = (n,) + self.shape
-        if isinstance(output, np.ndarray):
-            _check_shape(output.shape, full)
-        chunk = self.batch_chunk(self.shape)
+        with trace.span("api.affine_batch"):
+            _check_output(output, self.device)
+            transform_ms = np.asarray(transform_ms, dtype=np.float32)
+            if transform_ms.shape[:1] == (0,):
+                # an empty sweep is an empty stack
+                transform_ms = transform_ms.reshape(0, 4, 4)
+            if transform_ms.ndim != 3 or transform_ms.shape[1:] != (4, 4):
+                raise ValueError(
+                    f"expected an (N, 4, 4) stack, got {transform_ms.shape}")
+            n = transform_ms.shape[0]
+            full = (n,) + self.shape
+            if isinstance(output, np.ndarray):
+                _check_shape(output.shape, full)
+            chunk = self.batch_chunk(self.shape)
 
-        timer = ProfileTimer(self._dev) if profile else None
-        if timer:
-            timer.__enter__()
-        try:
-            if isinstance(output, str):
-                stack = torch.empty(full, dtype=torch.float32,
-                                    device=self._dev)
-                for pos in range(0, n, chunk):
-                    self._resample(transform_ms[pos:pos + chunk],
-                                   out=stack[pos:pos + chunk])
-                return stack
-            # host return: the device holds one chunk of output at a time
-            result_np = np.empty(full, np.float32)
-            buf = torch.empty((min(chunk, n),) + self.shape,
-                              dtype=torch.float32, device=self._dev)
-            for pos in range(0, n, chunk):
-                ms = transform_ms[pos:pos + chunk]
-                result_np[pos:pos + len(ms)] = self._resample(
-                    ms, out=buf[:len(ms)]).cpu().numpy()
-            return _finish(result_np, output)
-        finally:
+            timer = ProfileTimer(self._dev) if profile else None
             if timer:
-                timer.__exit__(None, None, None)
+                timer.__enter__()
+            try:
+                if isinstance(output, str):
+                    stack = torch.empty(full, dtype=torch.float32,
+                                        device=self._dev)
+                    for pos in range(0, n, chunk):
+                        self._resample(transform_ms[pos:pos + chunk],
+                                       out=stack[pos:pos + chunk])
+                    return stack
+                # host return: the device holds one chunk of output at a time
+                result_np = np.empty(full, np.float32)
+                buf = torch.empty((min(chunk, n),) + self.shape,
+                                  dtype=torch.float32, device=self._dev)
+                for pos in range(0, n, chunk):
+                    ms = transform_ms[pos:pos + chunk]
+                    result_np[pos:pos + len(ms)] = self._resample(
+                        ms, out=buf[:len(ms)]).cpu().numpy()
+                return _finish(result_np, output)
+            finally:
+                if timer:
+                    timer.__exit__(None, None, None)
 
     # ------------------------------------------------------------- transforms
 
